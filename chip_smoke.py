@@ -1,23 +1,38 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Phases, one line each (a failure exits non-zero):
+Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: compiles myc_nerfs_tpu_torch/csrc/fused_mlp.cu with nvcc.
-3. kernel: fused_mlp against its plain PyTorch version at both NGP MLP
-   shapes (density 32->64->16, rgb 32->64->64->16), 262144 rows (one
-   4096-ray x 64-sample render chunk), f32 and bf16, TF32 off; max abs
-   error against the stated tolerance and median times from CUDA events.
-4. slice: run_net.build_trainer on configs/ngp/Car.py (L16F2, 2^19,
+3. kernel: the fused_mlp forward kernel against its plain PyTorch version
+   at both NGP MLP shapes (density 32->64->16, rgb 32->64->64->16),
+   262144 rows (one 4096-ray x 64-sample chunk), f32 and bf16, TF32 off;
+   max abs error against the stated tolerance and median times from CUDA
+   events.
+4. kernel_bwd: the backward kernel (fused_mlp_backward) against
+   fused_mlp_backward_reference at the same shapes and rows: dx and every
+   dW, with their tolerances, and median times.
+5. slice: run_net.build_trainer on configs/ngp/Car.py (L16F2, 2^19,
    aabb_scale 4, fp16 -> bf16 MLPs, use_fully) with seeded random
    weights, 16 occupancy-grid updates, then two 800x800 frames rendered
    along the spherical path; the frames must be finite and not all
    background, and the MLPs must have run through the kernel. One chunk
    of rays is rendered again with the plain MLP and compared.
-Then a JSON line describing each kernel, and last the result line.
+6. train: the same Car config on the synthetic scene (12 views at
+   128x128; the model and training settings as the file gives them)
+   trained 256 steps through run_net.train_loop: 16 blocks, one grid
+   update each, 4096 rays adapting toward 2^18 samples. Loss and params
+   must stay finite, at most half the steps may be skipped, the train
+   PSNR must rise, and the backward kernel must have run. Then the step's
+   stages are timed, and on one batch every parameter's gradient through
+   the kernels is compared with the plain path's (use_fully=False).
+Then a JSON line describing each kernel, and last the result line. Each
+main-path run (the render, the training) starts with the launch counts
+at 0 and reads them right after it.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +48,20 @@ SHAPES = {"density": (32, 64, 16), "rgb": (32, 64, 64, 16)}
 TOL = {torch.float32: lambda scale: 1e-4 * max(1.0, scale),
        torch.bfloat16: lambda scale: 2.0 ** -7 * max(1.0, scale)}
 FRAMES, H, W = 2, 800, 800          # configs/ngp/Car.py test split
+# backward, against each reference's scale: f32 dx 1e-5 (16-64-term sums in
+# another order), f32 dW 1e-4 (a sum over 262144 rows in another order);
+# bf16 2 ulps (2^-7), as the forward
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
+TRAIN_STEPS, TRAIN_VIEWS, TRAIN_SIZE = 256, 12, 128
+# the last block's mean train PSNR must beat the first block's by this much
+# (dB): half, rounded down, of the 18.7 dB rise (13.0 -> 31.8) of the first
+# run of this phase on an H100
+PSNR_RISE = 9.0
+# kernel path vs plain path gradient, per parameter, as |a-b| / |b| over
+# the whole tensor: the plain path's autograd rounds the gradient to bf16
+# (up to 2^-9 of each element) at every layer boundary before dW, and the
+# kernel does not; allow two bf16 ulps (2^-7)
+GRAD_REL_TOL = 2.0 ** -7
 
 
 def fail(msg: str) -> None:
@@ -85,6 +114,43 @@ def phase_kernel(fm) -> dict:
                 fail(f"fused_mlp {name} {dtype}: max abs err {err} > {tol}")
             if dtype == torch.bfloat16:  # the Car slice's dtype
                 worst = max(worst, err)
+                ms += t_k
+                plain_ms += t_p
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_kernel_bwd(fm) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, widths in SHAPES.items():
+            x = torch.rand((ROWS, widths[0]), device="cuda", generator=g).to(dtype)
+            ws = [(torch.randn((widths[i], widths[i + 1]), device="cuda",
+                               generator=g) / widths[i] ** 0.5).to(dtype)
+                  for i in range(len(widths) - 1)]
+            gy = torch.randn((ROWS, widths[-1]), device="cuda", generator=g).to(dtype)
+            dx, dws = fm.fused_mlp_backward(x, ws, gy)
+            dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, gy)
+            torch.cuda.synchronize()
+            tol_dx, tol_dw = BWD_TOL[dtype]
+            errs, ok = [], True
+            for i, (a, b) in enumerate([(dx, dx_ref)] + list(zip(dws, dws_ref))):
+                err = (a.float() - b.float()).abs().max().item()
+                tol = (tol_dx if i == 0 else tol_dw) * max(1.0, b.float().abs().max().item())
+                errs.append(f"{'dx' if i == 0 else f'dW{i - 1}'}={err:.3e}/{tol:.3e}")
+                ok &= err <= tol
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+            t_k = median_ms(lambda: fm.fused_mlp_backward(x, ws, gy))
+            t_p = median_ms(lambda: fm.fused_mlp_backward_reference(x, ws, gy))
+            print(f"kernel_bwd: fused_mlp_backward {name} "
+                  f"{'x'.join(map(str, widths))} {str(dtype).split('.')[-1]} "
+                  f"rows={ROWS} tf32=off max_abs_err/tol {' '.join(errs)} "
+                  f"{'ok' if ok else 'BREACH'} kernel_ms={t_k:.4f} "
+                  f"plain_ms={t_p:.4f}", flush=True)
+            if not ok:
+                fail(f"fused_mlp_backward {name} {dtype}: {errs}")
+            if dtype == torch.bfloat16:
                 ms += t_k
                 plain_ms += t_p
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
@@ -168,6 +234,135 @@ def phase_slice(fm, card: str) -> int:
     return launches
 
 
+def phase_train(fm, card: str):
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.core.config import load_config
+    from myc_nerfs_tpu_torch.data.blender import RayBatcher
+
+    cfg = load_config("configs/ngp/Car.py")
+    cfg.update(synthetic=True, synthetic_views=TRAIN_VIEWS, synthetic_size=TRAIN_SIZE)
+    data, h, w = run_net.load_data(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer, tcfg = run_net.build_trainer(cfg, gen, device="cuda")
+    model = trainer.model
+    if not (model.cfg.use_bf16 and model.cfg.use_fully and tcfg.skip_nonfinite
+            and tcfg.fp16_grads and trainer.rcfg.n_compact == 64
+            and tcfg.lr == 0.1 and tcfg.ema_decay == 0.95
+            and tcfg.n_rays_per_batch == 4096 and tcfg.target_batch_size == 1 << 18):
+        fail(f"Car train config did not build as expected: {model.cfg} {tcfg}")
+
+    # time every block and grid update of the loop (synchronised)
+    blocks, grid_s = [], []
+    train_block, grid_update = trainer.train_block, trainer.grid_update
+
+    def timed_block(rays_o, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_block(rays_o, *a, **k)
+        torch.cuda.synchronize()
+        blocks.append((time.perf_counter() - t0, rays_o.shape[0], rays_o.shape[1]))
+        return m
+
+    def timed_grid(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grid_update(*a, **k)
+        torch.cuda.synchronize()
+        grid_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_block, trainer.grid_update = timed_block, timed_grid
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fm.fused_mlp.launches = 0
+    fm.fused_mlp_backward.launches = 0
+    hist = run_net.train_loop(trainer, tcfg, data, TRAIN_STEPS, gen,
+                              log=lambda msg: print(f"train: {msg}", flush=True))
+    torch.cuda.synchronize()
+    launches = (fm.fused_mlp.launches, fm.fused_mlp_backward.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trainer.train_block, trainer.grid_update = train_block, grid_update
+
+    loss = [m["loss"].float().mean().item() for m in hist]
+    bpsnr = [m["psnr"].float().mean().item() for m in hist]
+    skipped = sum(int((~m["finite"]).sum().item()) for m in hist)
+    samples = sum(int(m["n_samples"].sum().item()) for m in hist)
+    t_total = sum(t for t, _, _ in blocks)
+    rays = sum(s * b for _, s, b in blocks)
+    step_s = sorted(t / s for t, s, _ in blocks)[len(blocks) // 2]
+    finite = all(math.isfinite(v) for v in loss) and all(
+        torch.isfinite(p).all().item() for p in model.param_list())
+    print(f"train: Car L16F2 2^19 aabb_scale=4 bf16 use_fully fp16_grads "
+          f"skip_nonfinite n_compact=64 lr=0.1 ema=0.95 synthetic "
+          f"{TRAIN_VIEWS}x{TRAIN_SIZE}x{TRAIN_SIZE} steps={TRAIN_STEPS} "
+          f"blocks={len(hist)} s_per_step_median={step_s:.4f} "
+          f"train_rays_per_s={rays / t_total:.0f} "
+          f"samples_per_s={samples / t_total:.0f} peak_mem_gib={peak_gib:.2f} "
+          f"grid_update_s_median={sorted(grid_s)[len(grid_s) // 2]:.4f} "
+          f"loss_first={loss[0]:.5f} loss_last={loss[-1]:.5f} "
+          f"psnr_first={bpsnr[0]:.3f} psnr_last={bpsnr[-1]:.3f} "
+          f"skipped={skipped} n_rays_per_batch={trainer.n_rays_per_batch} "
+          f"fused_mlp_launches={launches[0]} fused_mlp_bwd_launches={launches[1]} "
+          f"[{card}]", flush=True)
+    if not finite:
+        fail("training produced a non-finite loss or parameter")
+    if skipped > TRAIN_STEPS // 2:
+        fail(f"{skipped} of {TRAIN_STEPS} steps were skipped as non-finite")
+    if not bpsnr[-1] > bpsnr[0] + PSNR_RISE:
+        fail(f"train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}, "
+             f"not by {PSNR_RISE} dB")
+    if launches[1] == 0 or launches[0] == 0:
+        fail("training did not run the fused_mlp kernels")
+
+    # the stages of one step at the final batch size: CUDA events, medians
+    batch = RayBatcher(data.n_images, data.n_pixels, trainer.n_rays_per_batch, seed=1)
+    img_ids, pix_ids = batch.next()
+    o, d = data.rays_for_pixels(img_ids, pix_ids)
+    rays_o, rays_d = (torch.from_numpy(a).cuda() for a in (o, d))
+    target = torch.from_numpy(data.pixel_values(img_ids, pix_ids)).cuda()
+    bg = torch.ones_like(target)
+    xi = torch.rand((rays_o.shape[0], 1), device="cuda", generator=gen)
+    stages = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.enable_grad():
+            loss_t, _ = trainer.forward(rays_o, rays_d, target, bg, xi)
+            ev[1].record()
+            grads = trainer.backward(loss_t)
+        ev[2].record()
+        trainer.update(grads)
+        ev[3].record()
+        ev[3].synchronize()
+        for k, (a, b) in zip(stages, zip(ev, ev[1:])):
+            stages[k].append(a.elapsed_time(b))
+    med = {k: sorted(v)[len(v) // 2] for k, v in stages.items()}
+    grid_ms = 1e3 * sorted(grid_s)[len(grid_s) // 2]
+    print(f"train: step stages at {rays_o.shape[0]} rays, ms (median of 8): "
+          + " ".join(f"{k}={v:.3f}" for k, v in med.items())
+          + f" grid_update={grid_ms:.3f} (per {tcfg.update_den_freq} steps) "
+          f"[{card}]", flush=True)
+
+    # every parameter's gradient on one batch: kernel path vs plain path
+    grads = {}
+    for use_fully in (True, False):
+        model.net.use_fully = use_fully
+        with torch.enable_grad():
+            loss_t, _ = trainer.forward(rays_o, rays_d, target, bg, xi)
+            grads[use_fully] = trainer.backward(loss_t)
+    model.net.use_fully = True
+    names = [f"table{i}" for i in range(len(model.tables))] + list(model.net.LAYERS)
+    rel = {}
+    for n, a, b in zip(names, grads[True], grads[False]):
+        rel[n] = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+    print("train: gradient kernel vs plain path, |a-b|/|b|: "
+          + " ".join(f"{n}={v:.2e}" for n, v in rel.items())
+          + f" tol={GRAD_REL_TOL:.2e}", flush=True)
+    if not all(v <= GRAD_REL_TOL for v in rel.values()):
+        fail("kernel and plain path gradients disagree")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA GPU")
@@ -182,12 +377,17 @@ def main() -> None:
     print(f"build: {fm.SOURCE.relative_to(fm._PKG.parent)} -> "
           f"{path.relative_to(fm._PKG.parent)} in {secs:.2f} s", flush=True)
     kstats = phase_kernel(fm)
-    launches = phase_slice(fm, smi)
-    print(json.dumps({"kernels": [{
-        "name": "fused_mlp", "route": "cuda",
-        "source": "myc_nerfs_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "myc_nerfs_tpu/ops/pallas/fused_mlp.py:34",
-        "launches": launches, **kstats}]}), flush=True)
+    bstats = phase_kernel_bwd(fm)
+    render_launches = phase_slice(fm, smi)
+    fwd_launches, bwd_launches = phase_train(fm, smi)
+    source = "myc_nerfs_tpu_torch/csrc/fused_mlp.cu"
+    print(json.dumps({"kernels": [
+        {"name": "fused_mlp", "route": "cuda", "source": source,
+         "replaces": "myc_nerfs_tpu/ops/pallas/fused_mlp.py:34",
+         "launches": render_launches + fwd_launches, **kstats},
+        {"name": "fused_mlp_bwd", "route": "cuda", "source": source,
+         "replaces": "myc_nerfs_tpu/ops/pallas/fused_mlp.py:47",
+         "launches": bwd_launches, **bstats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,38 +1,45 @@
-"""Instant-NGP CLI, render tasks (counterpart of myc_nerfs_tpu/cli/run_net.py).
+"""Instant-NGP CLI (counterpart of myc_nerfs_tpu/cli/run_net.py).
 
 ``python -m myc_nerfs_tpu_torch.cli.run_net --config-file <cfg.py>
---task test|render [--save_dir d] [--synthetic] [--device cuda]`` with the
-same python-module configs as the JAX package (jnerf tools/run_net.py).
+--task train|test|render [--save_dir d] [--synthetic] [--steps N]
+[--device cuda]`` with the same python-module configs as the JAX package
+(jnerf tools/run_net.py).
 
+- ``--task train`` runs ``train_loop`` (the JAX run_net loop) to
+  ``tot_train_steps`` (or ``--steps``) and saves ``model.ckpt`` in the JAX
+  package's format (needs the msgpack package).
 - ``--task test`` renders the eval views, writes ``test/r_<i>.npy`` (and a
   PNG when PIL is installed) and appends the mean PSNR to ``psnr.txt``.
 - ``--task render`` renders ``render_frames`` views along the spherical
   path into ``demo/``.
-- ``--task train`` is not ported yet and exits with an error.
 
-With ``load_ckpt = True`` in the config, ``<save_dir>/model.ckpt`` (a JAX
-package checkpoint) is restored first.
+With ``load_ckpt = True`` in the config, ``<save_dir>/model.ckpt`` (the JAX
+package's or the port's) is restored first.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core import components  # noqa: F401  (registers the type= factories)
-from ..core.checkpoint import latest_checkpoint, restore_checkpoint
+from ..core.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from ..core.config import init_cfg, load_config
 from ..core.registry import (ENCODERS, LOSSES, NETWORKS, OPTIMS, SAMPLERS,
                              SCHEDULERS, build_from_cfg)
+from ..data.synthetic import OFF, SCALE  # synthetic scenes: world -> NGP box
 from ..geom.camera_path import path_spherical
 from ..render.ngp_render import NGPRenderConfig
 from ..train.ngp_trainer import NGPTrainConfig, NGPTrainer
 from ..utils.metrics import psnr
 
-SCALE, OFF = 0.33, 0.5  # synthetic scenes: world -> NGP box
+# val-render cadence during training (runner.py:80-84 renders a val image
+# every 4096 steps); module-level so tests can shrink it
+VAL_EVERY = 4096
 
 
 def build_trainer(cfg, generator: torch.Generator, device=None,
@@ -117,30 +124,120 @@ def _synthetic_scene(cfg):
 
 
 def load_data(cfg):
-    """(focal, H, W) of the ``--synthetic`` scene's cameras."""
-    if not cfg.get("synthetic"):
-        raise NotImplementedError("only --synthetic data is ported; the "
-                                  "blender loader arrives with training")
-    scene = _synthetic_scene(cfg)
-    return float(scene.intr[0, 0, 0]), scene.H, scene.W
+    """(training data, H, W): the ``--synthetic`` scene's train views
+    (SyntheticNGPData) or the config's blender dataset (NGPDataset, train
+    and val JSONs merged)."""
+    if cfg.get("synthetic"):
+        from ..data.synthetic import SyntheticNGPData
+
+        scene = _synthetic_scene(cfg)
+        return (SyntheticNGPData(scene, cfg.get("synthetic_views", 10)),
+                scene.H, scene.W)
+    from ..data import blender
+
+    ds_cfg = cfg.get("dataset", {}).get("train", {})
+    ds = blender.load_ngp_train_data(
+        ds_cfg.get("root_dir", "data"), aabb_scale=ds_cfg.get("aabb_scale", 1),
+        scale=ds_cfg.get("scale"), offset=ds_cfg.get("offset"),
+        correct_pose=tuple(ds_cfg.get("correct_pose", (-1, -1, 1))))
+    return ds, ds.H, ds.W
 
 
 def load_eval_views(cfg):
-    """Eval views -> (images, c2w list (NGP space), intr list): the
-    held-out views when configured, else the first train views."""
-    if not cfg.get("synthetic"):
-        raise NotImplementedError("only --synthetic eval views are ported")
-    scene = _synthetic_scene(cfg)
-    n_train = cfg.get("synthetic_views", 10)
-    n_val = cfg.get("synthetic_val_views", 0)
-    idx = range(n_train, n_train + n_val) if n_val else range(min(4, n_train))
-    c2ws, intrs, imgs = [], [], []
-    for i in idx:
-        R, t = scene.poses[i][:, :3], scene.poses[i][:, 3]
-        c2ws.append(torch.cat([R.T, (-R.T @ t[:, None]) * SCALE + OFF], 1))
-        intrs.append(scene.intr[i])
-        imgs.append(scene.images[i].numpy())
-    return np.asarray(imgs), c2ws, intrs
+    """Eval views -> (images or None, c2w list (NGP space), intr list): the
+    synthetic scene's held-out views when configured, else its first train
+    views; for blender data the val split."""
+    if cfg.get("synthetic"):
+        scene = _synthetic_scene(cfg)
+        n_train = cfg.get("synthetic_views", 10)
+        n_val = cfg.get("synthetic_val_views", 0)
+        idx = range(n_train, n_train + n_val) if n_val else range(min(4, n_train))
+        c2ws, intrs, imgs = [], [], []
+        for i in idx:
+            R, t = scene.poses[i][:, :3], scene.poses[i][:, 3]
+            c2ws.append(torch.cat([R.T, (-R.T @ t[:, None]) * SCALE + OFF], 1))
+            intrs.append(scene.intr[i])
+            imgs.append(scene.images[i].numpy())
+        return np.asarray(imgs), c2ws, intrs
+    from ..data import blender
+
+    ds_cfg = cfg.get("dataset", {}).get("val", cfg.get("dataset", {}).get("train", {}))
+    scene = blender.load_blender_split(ds_cfg.get("root_dir", "data"), "val",
+                                       require_images=False)
+    ds = blender.NGPDataset.from_scene(
+        scene, aabb_scale=ds_cfg.get("aabb_scale", 1),
+        scale=ds_cfg.get("scale"), offset=ds_cfg.get("offset"),
+        correct_pose=tuple(ds_cfg.get("correct_pose", (-1, -1, 1))))
+    intr = np.asarray([[scene.focal, 0, scene.W / 2],
+                       [0, scene.focal, scene.H / 2], [0, 0, 1.0]], np.float32)
+    imgs = blender.blend_background(scene) if scene.images.shape[0] else None
+    return imgs, [torch.from_numpy(m) for m in ds.c2w_ngp], \
+        [torch.from_numpy(intr)] * ds.c2w_ngp.shape[0]
+
+
+def train_loop(trainer: NGPTrainer, tcfg: NGPTrainConfig, data, steps: int,
+               generator: torch.Generator, cfg=None, out_dir: Optional[str] = None,
+               H: int = 0, W: int = 0, log=print) -> List[Dict[str, torch.Tensor]]:
+    """Train until ``steps`` (jnerf Runner.train; the JAX run_net loop).
+
+    Blocks of update_den_freq steps, each after one occupancy-grid update;
+    per-ray random backgrounds for RGBA data (runner.py:66-68), the pinned
+    background of pre-composited data; the batch adapts toward
+    target_batch_size samples after every block. With ``out_dir`` (and the
+    config, for the eval views), every VAL_EVERY steps one eval view's PSNR
+    goes to psnr.txt and model.ckpt is saved, and it is saved at the end.
+    Returns each block's metrics (train_block's, on the device)."""
+    from ..data.blender import RayBatcher
+
+    ckpt = os.path.join(out_dir, "model.ckpt") if out_dir else None
+    batcher = RayBatcher(data.n_images, data.n_pixels, trainer.n_rays_per_batch)
+    rng = np.random.default_rng(0)
+    fixed_bg = getattr(data, "fixed_bg", None)
+    S = tcfg.update_den_freq
+    it = trainer.state.step
+    val_views = None
+    history = []
+    while it < steps:
+        if batcher.batch != trainer.n_rays_per_batch:
+            batcher = RayBatcher(data.n_images, data.n_pixels,
+                                 trainer.n_rays_per_batch, seed=it)
+        trainer.state = trainer.state._replace(
+            occ=trainer.grid_update(trainer.state.occ, generator))
+        s = min(S, steps - it)
+        os_, ds_, ts_, bgs = [], [], [], []
+        for _ in range(s):
+            img_ids, pix_ids = batcher.next()
+            o, d = data.rays_for_pixels(img_ids, pix_ids)
+            bg = (np.tile(np.asarray(fixed_bg, np.float32), (len(img_ids), 1))
+                  if fixed_bg is not None
+                  else rng.uniform(0, 1, (len(img_ids), 3)).astype(np.float32))
+            ts_.append(data.pixel_values(img_ids, pix_ids, bg=bg))
+            bgs.append(bg)
+            os_.append(o)
+            ds_.append(d)
+        m = trainer.train_block(np.stack(os_), np.stack(ds_), np.stack(ts_),
+                                bg=np.stack(bgs), generator=generator)
+        trainer._update_batch_rays()
+        it += s
+        history.append(m)
+        if (it // S) % max(1, 100 // S) == 0:
+            log(f"step {it} psnr {float(m['psnr'][-1]):.2f} "
+                f"rays/batch {trainer.n_rays_per_batch}")
+        if ckpt and it % VAL_EVERY < S and it >= VAL_EVERY:
+            if val_views is None:
+                val_views = load_eval_views(cfg)
+            imgs, c2ws, intrs = val_views
+            if imgs is not None and len(c2ws):
+                rgb, _ = trainer.render_image(c2ws[0], intrs[0], H, W)
+                p = float(psnr(torch.clamp(rgb, 0, 1).cpu(), torch.from_numpy(imgs[0])))
+                with open(os.path.join(out_dir, "psnr.txt"), "a") as f:
+                    f.write(f"{it} {p}\n")
+                log(f"step {it} val psnr {p:.2f}")
+            save_checkpoint(ckpt, trainer.state, step=it)
+    if ckpt:
+        save_checkpoint(ckpt, trainer.state, step=steps)
+        log(f"saved {ckpt}")
+    return history
 
 
 def path_pose(c2w_nerf) -> torch.Tensor:
@@ -171,13 +268,11 @@ def main(argv: Optional[list] = None):
                         choices=["train", "test", "render"])
     parser.add_argument("--save_dir", default="")
     parser.add_argument("--synthetic", action="store_true")
+    parser.add_argument("--steps", type=int, default=0,
+                        help="override tot_train_steps")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda when available)")
     args = parser.parse_args(argv)
-    if args.task == "train":
-        raise SystemExit("--task train is not yet ported to myc_nerfs_tpu_torch; "
-                         "train with myc_nerfs_tpu.cli.run_net and render "
-                         "its checkpoint here")
 
     device = torch.device(args.device or
                           ("cuda" if torch.cuda.is_available() else "cpu"))
@@ -188,10 +283,18 @@ def main(argv: Optional[list] = None):
     out_dir = args.save_dir or os.path.join(cfg.get("log_dir", "./logs"),
                                             cfg.get("exp_name", "run"))
     os.makedirs(out_dir, exist_ok=True)
+    if args.task == "train" and importlib.util.find_spec("msgpack") is None:
+        raise SystemExit("--task train saves model.ckpt, which needs the "
+                         "msgpack package")
 
-    focal, H, W = load_data(cfg)
+    data, H, W = load_data(cfg)
+    # the dataset's cameras let mark_untrained blank never-seen cells
+    cam_kw = {}
+    if hasattr(data, "c2w_ngp"):
+        cam_kw = {"camera_c2w": torch.from_numpy(data.c2w_ngp),
+                  "focal": torch.from_numpy(data.focal), "image_wh": (W, H)}
     gen = torch.Generator(device=device).manual_seed(0)
-    trainer, _ = build_trainer(cfg, gen, device=device)
+    trainer, tcfg = build_trainer(cfg, gen, device=device, **cam_kw)
     ckpt = os.path.join(out_dir, "model.ckpt")
     if cfg.get("load_ckpt") and latest_checkpoint(out_dir):
         trainer.state, meta = restore_checkpoint(ckpt, trainer.state)
@@ -199,7 +302,10 @@ def main(argv: Optional[list] = None):
         trainer.set_host_step(meta.get("step", trainer.state.step))
         print(f"resumed @ {meta.get('step')}")
 
-    if args.task == "test":
+    if args.task == "train":
+        train_loop(trainer, tcfg, data, args.steps or tcfg.tot_train_steps, gen,
+                   cfg=cfg, out_dir=out_dir, H=H, W=W)
+    elif args.task == "test":
         images, c2ws, intrs = load_eval_views(cfg)
         test_dir = os.path.join(out_dir, "test")
         os.makedirs(test_dir, exist_ok=True)
@@ -208,13 +314,16 @@ def main(argv: Optional[list] = None):
             rgb, _ = trainer.render_image(c2ws[i], intrs[i], H, W)
             arr = torch.clamp(rgb, 0, 1).cpu().numpy()
             _save_frame(os.path.join(test_dir, f"r_{i}"), arr)
-            p = float(psnr(torch.from_numpy(arr), torch.from_numpy(images[i])))
-            psnrs.append(p)
-            print(f"test view {i}: psnr {p:.2f}")
-        with open(os.path.join(out_dir, "psnr.txt"), "a") as f:
-            f.write(f"mean {float(np.mean(psnrs))}\n")
-        print(f"TOTAL PSNR: {float(np.mean(psnrs)):.3f}")
+            if images is not None:
+                p = float(psnr(torch.from_numpy(arr), torch.from_numpy(images[i])))
+                psnrs.append(p)
+                print(f"test view {i}: psnr {p:.2f}")
+        if psnrs:
+            with open(os.path.join(out_dir, "psnr.txt"), "a") as f:
+                f.write(f"mean {float(np.mean(psnrs))}\n")
+            print(f"TOTAL PSNR: {float(np.mean(psnrs)):.3f}")
     else:
+        focal = float(np.asarray(data.focal).reshape(-1)[0])
         intr = torch.tensor([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1.0]])
         frame_dir = os.path.join(out_dir, "demo")
         os.makedirs(frame_dir, exist_ok=True)

@@ -5,7 +5,12 @@ state and back.
   [in, out]}, ...}}}`` where tables is the per-group list ('brick3'; a
   checkpoint stores it as a dict keyed "0", "1", ...) or the single
   [n_params, F] array ('hash');
+- the optax.adam state: ``({"count", "mu", "nu"}, {"count"})``, mu and nu
+  shaped like params (a checkpoint keys the tuple "0", "1");
 - ``OccupancyState``: density_grid, bitfield, mean_density, ema_step.
+
+The port keeps parameters and moments as lists in NGPModel.param_list()
+order; ``param_tree`` and ``param_leaves`` convert between the two.
 
 bf16 arrays may arrive as ml_dtypes bfloat16 or already widened to f32;
 either way the copy into a bf16 tensor is exact. Going back, bf16 tensors
@@ -13,15 +18,16 @@ come out as f32 arrays holding the same values.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from ..models.ngp import NGPModel
+from ..models.ngp import NGPModel, NGPNetwork
 from ..render.occupancy import OccupancyState
+from ..train.ngp_trainer import AdamState
 
-MLP_LAYERS = ("density0", "density1", "rgb0", "rgb1", "rgb2")
+MLP_LAYERS = NGPNetwork.LAYERS
 
 
 def _tensor(arr: Any) -> torch.Tensor:
@@ -46,6 +52,25 @@ def _table_list(tables: Any) -> List[Any]:
     return [tables]
 
 
+def param_tree(model: NGPModel, leaves: Sequence[Any]) -> Dict[str, Any]:
+    """Leaves in param_list() order -> the JAX params tree layout."""
+    n = len(model.tables)
+    tables = list(leaves[:n])
+    return {"table": tables if model.cfg.grid_impl != "hash" else tables[0],
+            "mlp": {"params": {name: {"kernel": leaf}
+                               for name, leaf in zip(MLP_LAYERS, leaves[n:])}}}
+
+
+def param_leaves(model: NGPModel, tree: Dict[str, Any]) -> List[Any]:
+    """A JAX params tree -> its leaves in param_list() order."""
+    tables = _table_list(tree["table"])
+    if len(tables) != len(model.tables):
+        raise ValueError(f"{len(tables)} tables for a model with "
+                         f"{len(model.tables)} (grid_impl mismatch?)")
+    mlp = tree["mlp"]["params"]
+    return tables + [mlp[name]["kernel"] for name in MLP_LAYERS]
+
+
 def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
     t = _tensor(src)
     if tuple(t.shape) != tuple(dst.shape):
@@ -57,24 +82,42 @@ def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
 
 def load_ngp_params(model: NGPModel, tree: Dict[str, Any]) -> NGPModel:
     """Copy a JAX NGPModel params tree into ``model`` (in place)."""
-    tables = _table_list(tree["table"])
-    if len(tables) != len(model.tables):
-        raise ValueError(f"{len(tables)} tables for a model with "
-                         f"{len(model.tables)} (grid_impl mismatch?)")
-    for i, (dst, src) in enumerate(zip(model.tables, tables)):
-        _copy(dst, src, f"table {i}")
-    mlp = tree["mlp"]["params"]
-    for name in MLP_LAYERS:
-        _copy(getattr(model.net, name), mlp[name]["kernel"], f"mlp {name}")
+    for i, (dst, src) in enumerate(zip(model.param_list(), param_leaves(model, tree))):
+        _copy(dst, src, f"param {i}")
     return model
 
 
 def ngp_params_to_numpy(model: NGPModel) -> Dict[str, Any]:
     """The inverse of load_ngp_params, in the JAX tree layout."""
-    tables = [_numpy(t) for t in model.tables]
-    return {"table": tables if model.cfg.grid_impl != "hash" else tables[0],
-            "mlp": {"params": {name: {"kernel": _numpy(getattr(model.net, name))}
-                               for name in MLP_LAYERS}}}
+    return param_tree(model, [_numpy(p) for p in model.param_list()])
+
+
+def adam_from_numpy(model: NGPModel, opt_tree: Dict[str, Any]) -> AdamState:
+    """A checkpoint's optax.adam state {"0": {"count", "mu", "nu"}, "1":
+    {"count"}} -> AdamState on the model's device, moments in the params'
+    dtypes."""
+    adam = opt_tree["0"]
+    params = model.param_list()
+
+    def moments(tree):
+        out = []
+        for p, src in zip(params, param_leaves(model, tree)):
+            t = torch.empty_like(p, requires_grad=False)
+            _copy(t, src, "adam moment")
+            out.append(t)
+        return out
+
+    return AdamState(count=_tensor(adam["count"]).to(params[0].device, torch.int32),
+                     mu=moments(adam["mu"]), nu=moments(adam["nu"]))
+
+
+def adam_tree(model: NGPModel, opt: AdamState) -> Dict[str, Any]:
+    """AdamState -> the optax.adam state tree as a checkpoint stores it,
+    {"0": {"count", "mu", "nu"}, "1": {"count"}}, with the port's tensors
+    as leaves (optax's two step counts are the one count)."""
+    return {"0": {"count": opt.count, "mu": param_tree(model, opt.mu),
+                  "nu": param_tree(model, opt.nu)},
+            "1": {"count": opt.count}}
 
 
 def occupancy_from_numpy(tree: Dict[str, Any], device=None) -> OccupancyState:

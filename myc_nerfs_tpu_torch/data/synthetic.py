@@ -2,7 +2,8 @@
 
 Ground-truth images of a closed-form emissive field, volume-rendered at a
 high sample count from orbit cameras: the data of run_net's ``--synthetic``
-mode. Only ``make_scene`` (and what it calls) is ported.
+mode. Only ``make_scene`` (and what it calls) is ported, with
+``SyntheticNGPData``, the rays and pixels the NGP trainer draws from it.
 """
 from __future__ import annotations
 
@@ -81,3 +82,34 @@ def make_scene(n_views: int = 6, H: int = 32, W: int = 32,
                           for i in range(n_views)])
     return SyntheticScene(images=images, poses=poses, intr=intr, H=H, W=W,
                           depth_range=depth_range)
+
+
+# synthetic scenes: world -> NGP box, t * SCALE + OFF
+SCALE, OFF = 0.33, 0.5
+
+
+class SyntheticNGPData:
+    """A synthetic scene's first ``n_train`` views as NGP training data
+    (the JAX run_net's SyntheticNGPData): per-pixel NGP-space rays, and
+    targets already composited over white, so training pins that
+    background (``fixed_bg``)."""
+
+    fixed_bg = (1.0, 1.0, 1.0)
+
+    def __init__(self, scene: SyntheticScene, n_train: int):
+        H, W = scene.H, scene.W
+        self.n_images = n_train
+        self.n_pixels = H * W
+        self.images = scene.images[:n_train].numpy()
+        self.focal = float(scene.intr[0, 0, 0])
+        c, r = rays_lib.get_center_and_ray(scene.poses[:n_train],
+                                           scene.intr[:n_train], H, W)
+        d = r / torch.linalg.norm(r, dim=-1, keepdim=True)
+        self._o = (c * SCALE + OFF).reshape(n_train, -1, 3).numpy()
+        self._d = d.reshape(n_train, -1, 3).numpy()
+
+    def rays_for_pixels(self, img_ids, pix_ids):
+        return self._o[img_ids, pix_ids], self._d[img_ids, pix_ids]
+
+    def pixel_values(self, img_ids, pix_ids, bg=None):
+        return self.images.reshape(self.n_images, -1, 3)[img_ids, pix_ids]

@@ -15,6 +15,9 @@ myc_nerfs_tpu/models/ngp.py).
 bf16 (``use_bf16``) follows the JAX package: MLP weights are bf16, the
 grid tables stay f32 while the brick encode interpolates in bf16, and both
 encodings are cast to bf16 before the MLPs.
+
+Every table and weight is a trainable parameter; renders and grid updates
+run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -154,6 +157,7 @@ class NGPNetwork(nn.Module):
     [N, 16]) -> raw [N, 4] (rgb, density). Weights are [in, out]."""
 
     RGB_PAD = 16  # the kernel's column granularity
+    LAYERS = ("density0", "density1", "rgb0", "rgb1", "rgb2")
 
     def __init__(self, in_dim: int = 32, dir_dim: int = 16,
                  density_n_neurons: int = 64, rgb_n_neurons: int = 64,
@@ -171,7 +175,7 @@ class NGPNetwork(nn.Module):
             w = torch.zeros(shape, dtype=dtype, device=device)
             if generator is not None:
                 _lecun_normal_(w, generator)
-            setattr(self, name, nn.Parameter(w, requires_grad=False))
+            setattr(self, name, nn.Parameter(w))
 
     def _mlp(self, x: torch.Tensor, weights) -> torch.Tensor:
         return (fused_mlp if self.use_fully else fused_mlp_reference)(x, weights)
@@ -245,13 +249,18 @@ class NGPModel(nn.Module):
                                           device=device)]
         else:
             tables = [torch.zeros(s, device=device) for s in shapes]
-        self.tables = nn.ParameterList(
-            [nn.Parameter(t, requires_grad=False) for t in tables])
+        self.tables = nn.ParameterList([nn.Parameter(t) for t in tables])
         self.net = NGPNetwork(in_dim=cfg.grid.out_dim,
                               density_n_neurons=cfg.density_n_neurons,
                               rgb_n_neurons=cfg.rgb_n_neurons,
                               use_fully=cfg.use_fully, dtype=dtype,
                               device=device, generator=generator)
+
+    def param_list(self) -> List[nn.Parameter]:
+        """Every trainable tensor in one fixed order: the tables, then the
+        MLP weights in NGPNetwork.LAYERS order (the optimizer's and the
+        checkpoint's leaf order)."""
+        return list(self.tables) + [getattr(self.net, n) for n in NGPNetwork.LAYERS]
 
     def encode(self, positions: torch.Tensor) -> torch.Tensor:
         if self.cfg.grid_impl == "brick3":
@@ -279,11 +288,24 @@ class NGPModel(nn.Module):
         return self.net.density(pos_enc).float()
 
 
+class _DensityActivation(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, raw):
+        ctx.save_for_backward(raw)
+        return torch.exp(torch.clamp_max(raw, 30.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (raw,) = ctx.saved_tensors
+        return torch.exp(torch.clamp(raw, -15.0, 15.0)) * g
+
+
 def density_activation(raw: torch.Tensor) -> torch.Tensor:
     """exp(min(raw, 30)) (jnerf ray_sampler_header.h:926-943; the min
-    guards the overflow the JAX package documents). Forward only: the
-    clamped-derivative backward arrives with training."""
-    return torch.exp(torch.clamp_max(raw, 30.0))
+    guards the overflow the JAX package documents), with the reference's
+    clamped derivative exp(clip(raw, +-15)) * g
+    (ray_sampler_header.h:1050-1056), as the JAX custom JVP."""
+    return _DensityActivation.apply(raw)
 
 
 def rgb_activation(raw: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,21 @@
-"""Fused bias-free MLP: the Hopper kernel's wrapper and its plain version.
+"""Fused bias-free MLP: the Hopper kernels' wrappers and their plain versions.
 
 Counterpart of myc_nerfs_tpu/ops/pallas/fused_mlp.py. ``fused_mlp(x,
 weights)`` computes y = Wn(...relu(W1 relu(W0 x))...) with f32
-accumulation and a cast to x's dtype after every layer:
+accumulation and a cast to x's dtype after every layer, and is
+differentiable (a ``torch.autograd.Function``, the JAX custom VJP):
 
-- on a CUDA tensor it launches the hand-written kernel in
-  ``csrc/fused_mlp.cu`` (built with nvcc on first use) or raises;
-- on a CPU tensor it runs ``fused_mlp_reference``, the plain version.
+- on CUDA tensors the forward and the backward launch the hand-written
+  kernels in ``csrc/fused_mlp.cu`` (built with nvcc on first use) or raise;
+- on CPU tensors they run ``fused_mlp_reference`` and
+  ``fused_mlp_backward_reference``, the plain versions.
 
-Weights use the JAX layout, [in, out] per layer. The kernel takes widths
-that are multiples of 16 up to 64 (both NGP MLPs); the plain version takes
-any widths. Forward only: the backward kernel arrives with training.
+The backward follows the Pallas ``_bwd_kernel``: it recomputes the
+forward's post-activations (rounded to x's dtype), accumulates each dW in
+f32 from the unrounded f32 gradient, and rounds the gradient to x's dtype
+before each dgrad product. Weights use the JAX layout, [in, out] per layer.
+The kernels take widths that are multiples of 16 up to 64 (both NGP MLPs);
+the plain versions take any widths.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,17 +42,49 @@ MAX_WIDTH = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def fused_mlp_reference(x: torch.Tensor,
                         weights: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Plain PyTorch version: the CPU path and the kernel's oracle."""
+    """Plain PyTorch forward: the CPU path and the kernel's oracle. Sums in
+    f32 (f64 for f64 inputs, so that gradcheck can run on it)."""
+    acc = _acc_dtype(x)
     h = x
     n = len(weights)
     for i, w in enumerate(weights):
-        h = h.float() @ w.float()
+        h = h.to(acc) @ w.to(acc)
         if i < n - 1:
             h = torch.relu(h)
         h = h.to(x.dtype)
     return h
+
+
+def fused_mlp_backward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                                 g: torch.Tensor, need_dx: bool = True
+                                 ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+    """Plain PyTorch backward, step by step as the Pallas ``_bwd_kernel``:
+    the CPU path and the backward kernel's oracle. Returns (dx in x's
+    dtype, or None without ``need_dx``; [dW_i in W_i's dtype]).
+
+    Not the autograd of fused_mlp_reference: in bf16 that would round the
+    gradient at every layer boundary before dW, and the kernel does not."""
+    acc = _acc_dtype(x)
+    n = len(weights)
+    post = [x]  # post-activation input of each layer, in x's dtype
+    for w in weights[:-1]:
+        post.append(torch.relu(post[-1].to(acc) @ w.to(acc)).to(x.dtype))
+    g = g.to(x.dtype).to(acc)
+    dws: List[torch.Tensor] = [None] * n  # type: ignore[list-item]
+    for i in range(n - 1, -1, -1):
+        dws[i] = (post[i].to(acc).T @ g).to(weights[i].dtype)
+        if i == 0 and not need_dx:
+            return None, dws
+        g = g.to(x.dtype).to(acc) @ weights[i].to(acc).T
+        if i > 0:
+            g = g * (post[i].to(acc) > 0.0)
+    return g.to(x.dtype), dws
 
 
 def _nvcc() -> str:
@@ -88,12 +125,14 @@ def build() -> Tuple[Path, float]:
 def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.fused_mlp_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.POINTER(ctypes.c_void_p),
-                                  ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                                  ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p]
-    lib.fused_mlp_fwd.restype = ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+    lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, ptr]
+    lib.fused_mlp_bwd_ctas.argtypes = [ints, i32, i64, i32, ints]
+    lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
+                                  i32, i64, i32, ptr]
+    for fn in (lib.fused_mlp_fwd, lib.fused_mlp_bwd_ctas, lib.fused_mlp_bwd):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -110,16 +149,8 @@ def _check_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> None:
         d = w.shape[1]
 
 
-def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
-    """y = Wn(...relu(W1 relu(W0 x))...): x [M, D_in], weights[i] [D_i, D_i+1].
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel;
-    anything the kernel does not take raises, and so does a failed build
-    or launch.
-    """
-    _check_chain(x, weights)
-    if x.device.type == "cpu":
-        return fused_mlp_reference(x, weights)
+def _kernel_widths(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> List[int]:
+    """The checks both kernels share; returns the layer widths."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -133,18 +164,25 @@ def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     for w in weights:
         if w.device != x.device or w.dtype != x.dtype:
             raise ValueError("fused_mlp: weights must share x's device and dtype")
-    if torch.is_grad_enabled() and (x.requires_grad
-                                    or any(w.requires_grad for w in weights)):
-        raise RuntimeError("fused_mlp kernel is forward-only; run it under "
-                           "torch.no_grad() (the backward kernel is not ported)")
+    return widths
+
+
+def _c_args(weights: Sequence[torch.Tensor], widths: Sequence[int]):
+    return ((ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights]),
+            (ctypes.c_int * len(widths))(*widths))
+
+
+def _forward(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return fused_mlp_reference(x, weights)
+    widths = _kernel_widths(x, weights)
     x = x.contiguous()
     weights = [w.contiguous() for w in weights]
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
     lib = _library()
-    w_ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    c_widths = (ctypes.c_int * len(widths))(*widths)
+    w_ptrs, c_widths = _c_args(weights, widths)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_mlp_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
@@ -156,4 +194,90 @@ def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     return y
 
 
-fused_mlp.launches = 0
+def fused_mlp_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                       g: torch.Tensor, need_dx: bool = True
+                       ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+    """(dx, [dW_i]) of fused_mlp at x for the output gradient g [M, D_out].
+
+    CPU tensors take fused_mlp_backward_reference. CUDA tensors launch the
+    backward kernel (then a fixed-order sum of the CTAs' partial dW, so the
+    result does not change from run to run); anything the kernel does not
+    take raises, and so does a failed build or launch."""
+    _check_chain(x, weights)
+    if g.shape != (x.shape[0], weights[-1].shape[1]):
+        raise ValueError(f"g has shape {tuple(g.shape)}, the output "
+                         f"{(x.shape[0], weights[-1].shape[1])}")
+    if x.device.type == "cpu":
+        return fused_mlp_backward_reference(x, weights, g, need_dx)
+    widths = _kernel_widths(x, weights)
+    if g.device != x.device:
+        raise ValueError("fused_mlp backward: g must share x's device")
+    m = x.shape[0]
+    x = x.contiguous()
+    weights = [w.contiguous() for w in weights]
+    g = g.to(x.dtype).contiguous()
+    sizes = [a * b for a, b in zip(widths[:-1], widths[1:])]
+    dw = torch.empty(sum(sizes), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    if m == 0:
+        dw.zero_()
+    else:
+        lib = _library()
+        w_ptrs, c_widths = _c_args(weights, widths)
+        code = _DTYPE_CODE[x.dtype]
+        with torch.cuda.device(x.device):
+            ctas = ctypes.c_int(0)
+            err = lib.fused_mlp_bwd_ctas(c_widths, len(weights), m, code,
+                                         ctypes.byref(ctas))
+            if err == -2:
+                raise ValueError(f"fused_mlp backward kernel: widths {widths} "
+                                 "need more shared memory than a CTA can have")
+            if err != 0:
+                raise RuntimeError(f"fused_mlp backward kernel: occupancy "
+                                   f"query failed (error {err})")
+            partial = torch.empty((ctas.value, sum(sizes)), dtype=torch.float32,
+                                  device=x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.fused_mlp_bwd(x.data_ptr(), g.data_ptr(),
+                                    dx.data_ptr() if need_dx else None,
+                                    dw.data_ptr(), partial.data_ptr(), ctas.value,
+                                    w_ptrs, c_widths, len(weights), m, code, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_mlp backward kernel launch failed (error {err})")
+        fused_mlp_backward.launches += 1
+    dws = [t.view(a, b) for t, a, b in
+           zip(torch.split(dw, sizes), widths[:-1], widths[1:])]
+    return dx, dws
+
+
+class _FusedMLP(torch.autograd.Function):
+    """fused_mlp with its backward: saves x and the weights (not the
+    activations; the backward recomputes them, as the Pallas kernel does)."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        return _forward(x, weights)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dws = fused_mlp_backward(x, weights, gy, need_dx=need[0])
+        return (dx if need[0] else None,
+                *[dw if n else None for dw, n in zip(dws, need[1:])])
+
+
+def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """y = Wn(...relu(W1 relu(W0 x))...): x [M, D_in], weights[i] [D_i, D_i+1].
+
+    CPU tensors take the plain versions. CUDA tensors launch the kernels,
+    the backward one when autograd asks for a gradient; anything the kernels
+    do not take raises, and so does a failed build or launch.
+    """
+    _check_chain(x, weights)
+    return _FusedMLP.apply(x, *weights)
+
+
+fused_mlp.launches = 0           # forward kernel launches
+fused_mlp_backward.launches = 0  # backward kernel launches

@@ -3,7 +3,9 @@
 - NeRF quadrature composite (barf model/nerf.py:405-421)
 - TensoRF raw2alpha cumprod transmittance (tensorf tensorBase.py:17-24)
 - NGP CalcRgb per-sample compositing with a background blend (jnerf
-  calc_rgb.py:35-158): a masked exclusive transmittance scan.
+  calc_rgb.py:35-158): a masked exclusive transmittance scan. Training
+  differentiates it with autograd, which yields the analytic VJP of
+  CalcRgb's custom backward, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a GPU, against their plain PyTorch versions.
+"""The port's CUDA kernels on a GPU, against their plain PyTorch versions:
+the fused MLP forward and backward, and the NGP model's gradient.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without one. This
 file imports no JAX, so on a machine without it run:
@@ -63,8 +64,12 @@ def test_fused_mlp_refuses_what_the_kernel_does_not_take(cuda_device):
     x, ws = _net((32, 16), 10, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="device and dtype"):
         fm.fused_mlp(x, [ws[0].cpu()])
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fm.fused_mlp(x.requires_grad_(), ws)
+    # a chain whose backward needs more shared memory than a CTA has: the
+    # forward runs, the backward raises
+    x, ws = _net((64,) * 9, 10, torch.float32, cuda_device)
+    y = fm.fused_mlp(x.requires_grad_(), ws)
+    with pytest.raises(ValueError, match="shared memory"):
+        y.sum().backward()
 
 
 def test_ngp_model_on_gpu_matches_cpu(cuda_device):
@@ -87,3 +92,91 @@ def test_ngp_model_on_gpu_matches_cpu(cuda_device):
         out = gpu(pos.to(cuda_device), dirs.to(cuda_device)).cpu()
     assert fm.fused_mlp.launches == before + 2  # density and rgb MLPs
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
+
+
+def _grad_out(rows, width, dtype, device, seed=2):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((rows, width))
+                            .astype(np.float32)).to(device, dtype)
+
+
+# Tolerances, against the scale (max abs, at least 1) of each reference:
+# f32 dx 1e-5 (sums of 16-64 products in another order); f32 dW 1e-4 (a sum
+# over up to 70001 rows in another order); bf16 2 ulps (2^-7): a sum on the
+# other side of a rounding boundary moves a rounded gradient or
+# post-activation by one ulp.
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(32, 64, 16), (32, 64, 64, 16)])
+@pytest.mark.parametrize("rows", [1, 63, 1000, 70001])
+def test_fused_mlp_backward_matches_plain(cuda_device, widths, dtype, rows):
+    x, ws = _net(widths, rows, dtype, cuda_device)
+    g = _grad_out(rows, widths[-1], dtype, cuda_device)
+    before = fm.fused_mlp_backward.launches
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_backward.launches == before + 1
+    tol_dx, tol_dw = BWD_TOL[dtype]
+    assert dx.dtype == dtype and dx.shape == x.shape
+    scale = max(1.0, dx_ref.float().abs().max().item())
+    assert (dx.float() - dx_ref.float()).abs().max().item() <= tol_dx * scale
+    for dw, ref, w in zip(dws, dws_ref, ws):
+        assert dw.dtype == dtype and dw.shape == w.shape
+        scale = max(1.0, ref.float().abs().max().item())
+        assert (dw.float() - ref.float()).abs().max().item() <= tol_dw * scale
+    # the partial dWs are summed in a fixed order: the same bits every run
+    dx2, dws2 = fm.fused_mlp_backward(x, ws, g)
+    assert torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
+
+
+def test_fused_mlp_autograd_on_gpu(cuda_device):
+    """fused_mlp under autograd on the card launches both kernels, honours
+    needs_input_grad, and gives the CPU plain path's gradients (f32)."""
+    x, ws = _net((32, 64, 64, 16), 5000, torch.float32, cuda_device)
+    g = _grad_out(5000, 16, torch.float32, cuda_device)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs = x.detach().to(dev).requires_grad_()
+        wss = [w.detach().to(dev).requires_grad_() for w in ws]
+        f0, b0 = fm.fused_mlp.launches, fm.fused_mlp_backward.launches
+        (fm.fused_mlp(xs, wss) * g.to(dev)).sum().backward()
+        launched = (fm.fused_mlp.launches - f0, fm.fused_mlp_backward.launches - b0)
+        assert launched == ((1, 1) if dev == "cuda" else (0, 0))
+        grads[dev] = [xs.grad.cpu()] + [w.grad.cpu() for w in wss]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, b.abs().max().item()))
+    # weights only: no dx is asked for, and none is made
+    wss = [w.detach().requires_grad_() for w in ws]
+    (fm.fused_mlp(x, wss) * g).sum().backward()
+    assert all(w.grad is not None for w in wss)
+
+
+def test_ngp_model_gradient_on_gpu_matches_cpu(cuda_device):
+    """The gradient of every NGPModel parameter (tables and MLP weights), on
+    the card through both kernels against the CPU through the plain
+    versions (f32). The table gradient is a scatter-add whose atomics sum
+    in no fixed order: rtol 1e-4 against each tensor's scale."""
+    from myc_nerfs_tpu_torch.models import ngp
+
+    cfg = ngp.NGPModelConfig(grid=ngp.HashGridConfig(
+        n_levels=8, log2_hashmap_size=15, desired_resolution=256.0))
+    cpu = ngp.NGPModel(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = ngp.NGPModel(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    pos = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
+    dirs = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
+    tgt = torch.from_numpy(rng.standard_normal((5000, 4)).astype(np.float32))
+    before = fm.fused_mlp_backward.launches
+    ((cpu(pos, dirs) - tgt) ** 2).sum().backward()
+    ((gpu(pos.to(cuda_device), dirs.to(cuda_device)) - tgt.to(cuda_device))
+     ** 2).sum().backward()
+    assert fm.fused_mlp_backward.launches == before + 2  # density and rgb
+    for (name, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
+        scale = max(1e-6, b.grad.abs().max().item())
+        err = (a.grad.cpu() - b.grad).abs().max().item()
+        assert err <= 1e-4 * scale, (name, err, scale)

@@ -1,10 +1,12 @@
-"""Port parity: myc_nerfs_tpu_torch.ops.cuda.fused_mlp on the CPU against
-the JAX Pallas fused_mlp (interpret mode, as tests/test_pallas_kernels.py
-runs it). The CUDA kernel itself is tested in test_torch_cuda_kernels.py."""
+"""Port parity: myc_nerfs_tpu_torch.ops.cuda.fused_mlp on the CPU, forward
+and backward, against the JAX Pallas fused_mlp and its custom VJP
+(interpret mode, as tests/test_pallas_kernels.py runs them). The CUDA
+kernels themselves are tested in test_torch_cuda_kernels.py."""
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,3 +109,124 @@ def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
                    timeout=120)
+
+
+def _jax_vjp(x, ws, g, dtype, tile=64):
+    """dx and dWs of the Pallas fused_mlp (its _bwd_kernel) as f32 numpy."""
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x, ws: jax_fused_mlp(x, ws, tile),
+                         jnp.asarray(x, dtype),
+                         tuple(jnp.asarray(w, dtype) for w in ws))
+        dx, dws = vjp(jnp.asarray(g, dtype))
+    return [np.asarray(a.astype(jnp.float32)) for a in (dx, *dws)]
+
+
+def _torch_grads(x, ws, g, dtype):
+    """dx and dWs through the autograd.Function (the CPU path runs
+    fused_mlp_backward_reference), as f32 numpy."""
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    wt = [torch.from_numpy(w).to(dtype).requires_grad_() for w in ws]
+    fm.fused_mlp(xt, wt).backward(torch.from_numpy(g).to(dtype))
+    for t in (xt, *wt):
+        assert t.grad.dtype == dtype
+    return [t.grad.float().numpy() for t in (xt, *wt)]
+
+
+def _dead_units(x, ws):
+    """Exact zeros in the ReLU masks: a zero input row and a first-layer
+    unit whose weights are all zero (pre-activation exactly 0)."""
+    x[3] = 0.0
+    ws[0][:, 5] = 0.0
+    return x, ws
+
+
+@pytest.mark.parametrize("widths,rows", [((32, 64, 64, 16), 300),
+                                         ((32, 64, 16), 77)])
+def test_backward_f32_matches_jax_vjp(widths, rows):
+    """f32: dx and every dW equal the Pallas VJP's to 1e-5 of each one's
+    scale (the same products summed in another order; dW sums over all
+    rows). Rows are not a multiple of the 64-row tile."""
+    x, ws = _dead_units(*_net(widths, 4, rows))
+    g = np.random.default_rng(5).standard_normal((rows, widths[-1])).astype(np.float32)
+    ref = _jax_vjp(x, ws, g, jnp.float32)
+    out = _torch_grads(x, ws, g, torch.float32)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-5 * max(1.0, np.abs(b).max()))
+    # the dead unit passes no gradient back, on both sides
+    assert np.all(out[1][:, 5] == 0.0) and np.all(ref[1][:, 5] == 0.0)
+
+
+@pytest.mark.parametrize("widths,rows", [((32, 64, 64, 16), 300),
+                                         ((32, 64, 16), 77)])
+def test_backward_bf16_matches_jax_vjp(widths, rows):
+    """bf16: the gradient is rounded to bf16 before each dgrad product and
+    the post-activations are bf16 on both sides; a sum on the other side of
+    a rounding boundary moves a value by one ulp, so allow two ulps (2^-7)
+    of each one's scale."""
+    x, ws = _dead_units(*_net(widths, 6, rows))
+    g = np.random.default_rng(7).standard_normal((rows, widths[-1])).astype(np.float32)
+    ref = _jax_vjp(x, ws, g, jnp.bfloat16)
+    out = _torch_grads(x, ws, g, torch.bfloat16)
+    for a, b in zip(out, ref):
+        assert np.abs(a - b).max() <= 2.0 ** -7 * max(1.0, np.abs(b).max())
+
+
+def test_backward_is_not_autograd_of_the_plain_forward():
+    """In bf16 the autograd of fused_mlp_reference rounds the gradient at
+    every layer boundary before dW; the port's backward, like the Pallas
+    one, keeps dW's gradient in f32. The two differ; the port's equals
+    JAX's bit for bit on this input."""
+    x, ws = _net((32, 64, 64, 16), 8, 200)
+    g = np.random.default_rng(9).standard_normal((200, 16)).astype(np.float32)
+    ref = _jax_vjp(x, ws, g, jnp.bfloat16)
+    dx, dws = fm.fused_mlp_backward(torch.from_numpy(x).bfloat16(),
+                                    [torch.from_numpy(w).bfloat16() for w in ws],
+                                    torch.from_numpy(g).bfloat16())
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt = [torch.from_numpy(w).bfloat16().requires_grad_() for w in ws]
+    fm.fused_mlp_reference(xt, wt).backward(torch.from_numpy(g).bfloat16())
+    ported = [dx.float().numpy()] + [d.float().numpy() for d in dws]
+    np.testing.assert_array_equal(ported[1], ref[1])
+    assert any(not np.array_equal(a, t.grad.float().numpy())
+               for a, t in zip(ported[1:], wt))
+
+
+def test_backward_rgb_head_padding_matches_jax():
+    """The port pads the rgb head's width-3 last layer to 16 columns; the
+    autograd of F.pad drops the padded columns' gradient, and what is left
+    equals JAX's unpadded VJP (f32, 1e-5 of scale)."""
+    x, ws = _net((32, 64, 64, 3), 10, 130)
+    g = np.random.default_rng(11).standard_normal((130, 3)).astype(np.float32)
+    ref = _jax_vjp(x, ws, g, jnp.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = [torch.from_numpy(w).requires_grad_() for w in ws]
+    w2 = torch.nn.functional.pad(wt[2], (0, 13))
+    y = fm.fused_mlp(xt, [wt[0], wt[1], w2])[:, :3]
+    y.backward(torch.from_numpy(g))
+    for t, b in zip((xt, *wt), ref):
+        assert t.grad.shape == b.shape
+        np.testing.assert_allclose(t.grad.numpy(), b, atol=1e-5 * max(1.0, np.abs(b).max()))
+
+
+def test_backward_gradcheck_f64():
+    """The CPU path's backward is the derivative of its forward:
+    torch.autograd.gradcheck in float64 (finite differences, its default
+    tolerances), with only the weights asking for a gradient as well."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((23, 8))).requires_grad_()
+    ws = [torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+          for s in ((8, 16), (16, 16), (16, 4))]
+    assert torch.autograd.gradcheck(lambda x, *w: fm.fused_mlp(x, w), (x, *ws))
+    assert torch.autograd.gradcheck(lambda *w: fm.fused_mlp(x.detach(), w), tuple(ws))
+
+
+def test_backward_needs_input_grad():
+    """No gradient is made for an input that does not ask for one."""
+    x, ws = _net((16, 32, 16), 13, 20)
+    wt = [torch.from_numpy(w).requires_grad_() for w in ws]
+    xt = torch.from_numpy(x)
+    fm.fused_mlp(xt, wt).sum().backward()
+    assert xt.grad is None and all(w.grad is not None for w in wt)
+    dx, dws = fm.fused_mlp_backward(xt, wt, torch.ones(20, 16), need_dx=False)
+    assert dx is None and len(dws) == 2

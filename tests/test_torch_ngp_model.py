@@ -168,23 +168,32 @@ def test_uint32_hash_wraparound():
 
 def test_checkpoint_reader_bf16(tmp_path):
     """A JAX checkpoint with bf16 MLP weights (fp16=True configs) and f32
-    tables loads bit-exactly through the msgpack reader and the bridge."""
+    tables, and the optax.adam state beside them, loads bit-exactly through
+    the msgpack reader and the bridge."""
     from myc_nerfs_tpu.core.checkpoint import save_checkpoint
     from myc_nerfs_tpu.render import occupancy as jocc
+    from myc_nerfs_tpu.train import ngp_trainer as jtr
     from myc_nerfs_tpu_torch.core.checkpoint import restore_checkpoint
     from myc_nerfs_tpu_torch.render import occupancy as tocc
-    from myc_nerfs_tpu_torch.train.ngp_trainer import NGPTrainState
+    from myc_nerfs_tpu_torch.train.ngp_trainer import NGPTrainState, init_adam
 
     jm, params, tm = _models("brick3", True, seed=2)
     ocfg = jocc.OccupancyConfig(grid_size=8, n_cascades=2)
     occ = jocc.init_occupancy(ocfg)._replace(
         mean_density=jnp.asarray(0.25), ema_step=jnp.asarray(3, jnp.int32))
+    adam, sched = jtr.make_optimizer(jtr.NGPTrainConfig()).init(params)
+    adam = adam._replace(count=jnp.asarray(5, jnp.int32),
+                         mu=jax.tree_util.tree_map(lambda p: p * 0.5, params),
+                         nu=jax.tree_util.tree_map(lambda p: p * p, params))
+    sched = sched._replace(count=jnp.asarray(5, jnp.int32))
     path = str(tmp_path / "model.ckpt")
-    save_checkpoint(path, {"params": params, "occ": occ, "step": jnp.asarray(7)},
-                    step=7)
+    save_checkpoint(path, jtr.NGPTrainState(params=params, opt_state=(adam, sched),
+                                            occ=occ, step=jnp.asarray(7)), step=7)
     fresh = tngp.NGPModel(tm.cfg)
-    state = NGPTrainState(params=fresh, occ=tocc.init_occupancy(
-        tocc.OccupancyConfig(grid_size=8, n_cascades=2)), step=0)
+    state = NGPTrainState(params=fresh, opt_state=init_adam(fresh.param_list()),
+                          occ=tocc.init_occupancy(
+                              tocc.OccupancyConfig(grid_size=8, n_cascades=2)),
+                          step=0)
     state, meta = restore_checkpoint(path, state)
     assert meta["step"] == 7 and state.step == 7
     assert state.occ.mean_density.item() == 0.25
@@ -192,3 +201,24 @@ def test_checkpoint_reader_bf16(tmp_path):
     assert fresh.net.rgb1.dtype == torch.bfloat16
     for a, b in zip(fresh.state_dict().values(), tm.state_dict().values()):
         assert torch.equal(a, b)
+    assert int(state.opt_state.count) == 5
+    for p, mu, nu in zip(tm.param_list(), state.opt_state.mu, state.opt_state.nu):
+        assert mu.dtype == nu.dtype == p.dtype
+        assert torch.equal(mu, (p * 0.5).to(p.dtype))
+        assert torch.equal(nu, (p * p).to(p.dtype))
+
+
+def test_density_activation_gradient_matches_jax():
+    """exp(min(raw, 30)) forward and the clamped derivative
+    exp(clip(raw, +-15)) * g backward, against the JAX custom JVP at raws
+    below, inside and above the clamps (rtol 1e-6: one exp each)."""
+    raw = np.asarray([-20.0, 0.0, 14.0, 16.0, 40.0], np.float32)
+    g = np.asarray([1.0, -2.0, 0.5, 3.0, 1e-3], np.float32)
+    jout, jvjp = jax.vjp(jngp.density_activation, jnp.asarray(raw))
+    (jgrad,) = jvjp(jnp.asarray(g))
+    t = torch.from_numpy(raw).requires_grad_()
+    out = tngp.density_activation(t)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-6)
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgrad), rtol=1e-6)
+    assert np.isfinite(t.grad.numpy()).all()
