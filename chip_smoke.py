@@ -2,7 +2,9 @@
 
 Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: compiles myc_nerfs_tpu_torch/csrc/fused_mlp.cu with nvcc.
+2. build: compiles the three sources under myc_nerfs_tpu_torch/csrc/
+   (fused_mlp.cu, grid_encode.cu, grid_probe.cu) with nvcc, all at once,
+   and prints each one's build time.
 3. kernel: the fused_mlp forward kernel against its plain PyTorch version
    at both NGP MLP shapes (density 32->64->16, rgb 32->64->64->16),
    262144 rows (one 4096-ray x 64-sample chunk), f32 and bf16, TF32 off;
@@ -11,23 +13,34 @@ Phases, each ending in one line (a failure exits non-zero):
 4. kernel_bwd: the backward kernel (fused_mlp_backward) against
    fused_mlp_backward_reference at the same shapes and rows: dx and every
    dW, with their tolerances, and median times.
-5. slice: run_net.build_trainer on configs/ngp/Car.py (L16F2, 2^19,
+5. kernel_encode / kernel_encode_bwd: the brick3 grid-encode kernels
+   (brick_encode, brick_encode_backward) against paired_encode_reference
+   and paired_encode_backward_reference on the Car config's 8 level-group
+   tables filled with uniform +-1 values, at 262144 positions from a real
+   march of one 4096-ray chunk of the Car render, the first of them
+   replaced by positions on cell and brick boundaries and at 0 and 1;
+   f32 and bf16, with the stated tolerances and median times.
+6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
+   line each; every probe must be correct.
+7. slice: run_net.build_trainer on configs/ngp/Car.py (L16F2, 2^19,
    aabb_scale 4, fp16 -> bf16 MLPs, use_fully) with seeded random
    weights, 16 occupancy-grid updates, then two 800x800 frames rendered
    along the spherical path; the frames must be finite and not all
-   background, and the MLPs must have run through the kernel. One chunk
-   of rays is rendered again with the plain MLP and compared.
-6. train: the same Car config on the synthetic scene (12 views at
+   background, and the grid updates and the render must each have run
+   the encode and MLP kernels. One chunk of rays is rendered again
+   through the plain encode and MLP and compared.
+8. train: the same Car config on the synthetic scene (12 views at
    128x128; the model and training settings as the file gives them)
    trained 256 steps through run_net.train_loop: 16 blocks, one grid
    update each, 4096 rays adapting toward 2^18 samples. Loss and params
    must stay finite, at most half the steps may be skipped, the train
-   PSNR must rise, and the backward kernel must have run. Then the step's
-   stages are timed, and on one batch every parameter's gradient through
-   the kernels is compared with the plain path's (use_fully=False).
+   PSNR must rise, and every encode and MLP kernel must have run. Then
+   the step's stages are timed, and on one batch every parameter's
+   gradient through the kernels is compared with the plain path's
+   (use_encode_kernel=False, use_fully=False).
 Then a JSON line describing each kernel, and last the result line. Each
-main-path run (the render, the training) starts with the launch counts
-at 0 and reads them right after it.
+main-path run (the grid updates, the render, the probes, the training)
+starts with every launch count at 0 and reads them right after it.
 """
 from __future__ import annotations
 
@@ -36,8 +49,11 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+
+from myc_nerfs_tpu_torch.utils.timing import median_ms
 
 ROWS = 262144                       # 4096 rays x 64 samples
 SHAPES = {"density": (32, 64, 16), "rgb": (32, 64, 64, 16)}
@@ -53,15 +69,20 @@ FRAMES, H, W = 2, 800, 800          # configs/ngp/Car.py test split
 # bf16 2 ulps (2^-7), as the forward
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 TRAIN_STEPS, TRAIN_VIEWS, TRAIN_SIZE = 256, 12, 128
+TRAIN_KERNELS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd")
 # the last block's mean train PSNR must beat the first block's by this much
 # (dB): half, rounded down, of the 18.7 dB rise (13.0 -> 31.8) of the first
 # run of this phase on an H100
 PSNR_RISE = 9.0
 # kernel path vs plain path gradient, per parameter, as |a-b| / |b| over
-# the whole tensor: the plain path's autograd rounds the gradient to bf16
-# (up to 2^-9 of each element) at every layer boundary before dW, and the
-# kernel does not; allow two bf16 ulps (2^-7)
+# the whole tensor. MLP weights: the plain path's autograd rounds the
+# gradient to bf16 (up to 2^-9 of each element) at every layer boundary
+# before dW, and the kernel does not; allow two bf16 ulps (2^-7). Tables:
+# the same contributions, added by f32 atomics in another order (1e-5).
 GRAD_REL_TOL = 2.0 ** -7
+TABLE_GRAD_REL_TOL = 1e-5
+ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
+BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
 
 
 def fail(msg: str) -> None:
@@ -69,19 +90,53 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def counters():
+    """Every kernel wrapper of the port, by the kernel's name in the JSON
+    line; each carries its launch count."""
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+    from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
+
+    return {"fused_mlp": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_backward,
+            "brick_encode": ge.brick_encode,
+            "brick_encode_bwd": ge.brick_encode_backward,
+            "gather_rows": gp.gather_rows, "gather_lanes": gp.gather_lanes,
+            "scatter_add_rows": gp.scatter_add_rows, "smem_scratch": gp.smem_scratch}
+
+
+def reset_launches() -> None:
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def phase_build() -> None:
+    """nvcc on every source at once; each build is printed with its time."""
+    from myc_nerfs_tpu_torch.ops.cuda import _build
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+    from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
+
+    modules = (fm, ge, gp)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        builds = [pool.submit(m.build) for m in modules]
+        results = [b.result() for b in builds]
+    root = _build.PKG.parent
+    for m, (path, secs) in zip(modules, results):
+        print(f"build: {m.SOURCE.relative_to(root)} -> {path.relative_to(root)} "
+              f"in {secs:.2f} s", flush=True)
+    print(f"build: all sources in {time.perf_counter() - t0:.2f} s (in parallel)",
+          flush=True)
 
 
 def phase_kernel(fm) -> dict:
@@ -156,7 +211,132 @@ def phase_kernel_bwd(fm) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_slice(fm, card: str) -> int:
+def encode_inputs():
+    """The Car model (seeded random weights, two grid updates), its 8
+    level-group tables refilled with uniform +-1 values, and 262144
+    positions: one 4096-ray x 64-sample chunk of a real march of the Car
+    render, the first of them replaced by positions on each level's cell and
+    brick boundaries, and by the corners of the unit cube."""
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.core.config import load_config
+    from myc_nerfs_tpu_torch.geom import rays as rays_lib
+    from myc_nerfs_tpu_torch.geom.camera_path import path_spherical
+    from myc_nerfs_tpu_torch.render.ngp_render import march_rays_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    trainer, _ = run_net.build_trainer(load_config("configs/ngp/Car.py"), gen,
+                                       device="cuda")
+    model = trainer.model
+    with torch.no_grad():
+        for _ in range(2):
+            trainer.state = trainer.state._replace(
+                occ=trainer.grid_update(trainer.state.occ, gen))
+        pose = run_net.path_pose(path_spherical(FRAMES)[0]).to("cuda")
+        d = rays_lib.get_ray_directions(H, W, (W * 0.6, W * 0.6), device="cuda")
+        rays_d = d.reshape(-1, 3)[::150][:ENCODE_RAYS] @ pose[:3, :3].T
+        rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        rays_o = pose[:3, 3].expand(rays_d.shape)
+        marched = march_rays_fused(trainer.occ_cfg, trainer.rcfg, trainer.state.occ,
+                                   rays_o, rays_d, n_samples=ENCODE_SAMPLES)
+    pos = marched.positions.reshape(-1, 3).contiguous()
+    edges = []
+    for sc in model.levels.scales:
+        k = torch.randint(0, math.ceil(sc) + 2, (BOUNDARY_PER_LEVEL, 3),
+                          device="cuda", generator=gen)
+        brick = torch.rand(k.shape, device="cuda", generator=gen) < 0.5
+        k = torch.where(brick, k - k % 4, k)
+        edges.append((k.float() - 0.5) / sc)  # pos * sc + 0.5 lands on k
+    c = torch.arange(8, device="cuda")
+    edges.append(torch.stack([c & 1, (c >> 1) & 1, (c >> 2) & 1], -1).float())
+    edges = torch.cat(edges).clamp(0.0, 1.0)
+    pos[:edges.shape[0]] = edges
+    tables = [torch.rand(t.shape, device="cuda", generator=gen) * 2 - 1
+              for t in model.tables]
+    return model, tables, pos, float(marched.valid.float().mean())
+
+
+def phase_kernel_encode():
+    from myc_nerfs_tpu_torch.ops import brick_grid as bg
+    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+
+    model, tables, pos, valid = encode_inputs()
+    geo = (model.cfg.grid, model.levels, model.groups)
+    shape = (f"Car {len(model.groups.groups)} groups L{model.levels.n_levels}"
+             f"F{model.cfg.grid.n_features} rows={pos.shape[0]} (march, "
+             f"{valid:.3f} valid, + boundaries) tables=uniform+-1")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fwd, bwd = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.no_grad():
+            out = ge.brick_encode(tables, pos, *geo, dtype)
+            ref = bg.paired_encode_reference(tables, pos, *geo, dtype)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = ge.FWD_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+            t_k = median_ms(lambda: ge.brick_encode(tables, pos, *geo, dtype))
+            t_p = median_ms(lambda: bg.paired_encode_reference(tables, pos, *geo, dtype))
+        ok = err <= tol and out.dtype == dtype and bool(torch.isfinite(out).all())
+        print(f"kernel_encode: brick_encode {shape} {dtype_name(dtype)} "
+              f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'BREACH'} "
+              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f}", flush=True)
+        if not ok:
+            fail(f"brick_encode {dtype}: max abs err {err} > {tol}")
+        g = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+        grads = ge.brick_encode_backward(tables, pos, g, *geo, dtype)
+        refs = bg.paired_encode_backward_reference(tables, pos, g, *geo, dtype)
+        torch.cuda.synchronize()
+        errs, ok, worst = [], True, 0.0
+        for i, (a, b) in enumerate(zip(grads, refs)):
+            e = (a - b).abs().max().item()
+            tol = ge.BWD_TOL * b.abs().max().item()
+            errs.append(f"table{i}={e:.3e}/{tol:.3e}")
+            ok &= e <= tol and a.shape == b.shape
+            worst = max(worst, e)
+        b_k = median_ms(lambda: ge.brick_encode_backward(tables, pos, g, *geo, dtype))
+        b_p = median_ms(lambda: bg.paired_encode_backward_reference(tables, pos, g, *geo,
+                                                                    dtype))
+        print(f"kernel_encode_bwd: brick_encode_backward {shape} {dtype_name(dtype)} "
+              f"max_abs_err/tol {' '.join(errs)} (tol {ge.BWD_TOL:g} of each table "
+              f"gradient's scale: the same contributions, added by f32 atomics "
+              f"in no fixed order) {'ok' if ok else 'BREACH'} kernel_ms={b_k:.4f} "
+              f"plain_ms={b_p:.4f}", flush=True)
+        if not ok:
+            fail(f"brick_encode_backward {dtype}: {errs}")
+        if dtype == torch.bfloat16:  # the Car slice's dtype
+            fwd = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
+            bwd = {"max_abs_err": worst, "ms": b_k, "plain_ms": b_p}
+    return fwd, bwd
+
+
+# each probe kernel's entry in the JSON line: the probe record it takes its
+# numbers from
+PROBE_RECORDS = {"gather_rows": "gather_rows_float32",
+                 "gather_lanes": "gather_lanes_2048x128",
+                 "scatter_add_rows": "scatter_add_rows_f32",
+                 "smem_scratch": "smem_scratch_227KB"}
+
+
+def phase_probe():
+    from myc_nerfs_tpu_torch.cli import probe_grid
+
+    reset_launches()
+    records = probe_grid.run_probes(lambda line: print(f"probe: {line}", flush=True))
+    launches = read_launches()
+    bad = [r["probe"] for r in records if not r["correct"]]
+    if bad:
+        fail(f"probes not correct: {bad}")
+    by_name = {r["probe"]: r for r in records}
+    stats = {}
+    for kernel, name in PROBE_RECORDS.items():
+        if launches[kernel] == 0:
+            fail(f"the probes did not run the {kernel} kernel")
+        r = by_name[name]
+        stats[kernel] = {"launches": launches[kernel], "max_abs_err": r["max_abs_err"],
+                         "ms": r["ms"], "plain_ms": r["plain_ms"]}
+    return stats
+
+
+def phase_slice(card: str):
     from myc_nerfs_tpu_torch.cli import run_net
     from myc_nerfs_tpu_torch.core.config import load_config
     from myc_nerfs_tpu_torch.geom.camera_path import path_spherical
@@ -168,28 +348,29 @@ def phase_slice(fm, card: str) -> int:
     grid = model.cfg.grid
     if not (model.cfg.use_bf16 and model.cfg.use_fully and grid.n_levels == 16
             and grid.n_features == 2 and grid.log2_hashmap_size == 19
-            and trainer.rcfg.aabb_scale == 4):
+            and trainer.rcfg.aabb_scale == 4 and model.use_encode_kernel):
         fail(f"Car config did not build as expected: {model.cfg}")
     intr = torch.tensor([[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1.0]])
     poses = [run_net.path_pose(p) for p in path_spherical(FRAMES)]
 
-    # the main path: grid updates, then the render; both run the kernel
-    torch.cuda.synchronize()
-    fm.fused_mlp.launches = 0
+    # the main path: grid updates, then the render; each runs the kernels
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(16):
         trainer.state = trainer.state._replace(
             occ=trainer.grid_update(trainer.state.occ, gen))
     torch.cuda.synchronize()
     t_grid = time.perf_counter() - t0
+    grid_launches = read_launches()
     occ_frac = trainer.state.occ.bitfield.float().mean().item()
 
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     t0 = time.perf_counter()
     frames = [trainer.render_image(p, intr, H, W)[0] for p in poses]
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
-    launches = fm.fused_mlp.launches
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rgb = torch.stack(frames)
     bg = torch.tensor(trainer.cfg.background_color, device="cuda")
@@ -199,17 +380,21 @@ def phase_slice(fm, card: str) -> int:
           f"grid_updates=16 ({t_grid:.2f} s) occupied={occ_frac:.4f} "
           f"frames={FRAMES}x{H}x{W} render_s={t_render:.3f} "
           f"rays_per_s={rays_s:.0f} peak_mem_gib={peak_gib:.2f} "
-          f"non_background={non_bg:.4f} fused_mlp_launches={launches} "
-          f"[{card}]", flush=True)
+          f"non_background={non_bg:.4f} "
+          f"grid_update_launches fused_mlp={grid_launches['fused_mlp']} "
+          f"brick_encode={grid_launches['brick_encode']} "
+          f"render_launches fused_mlp={launches['fused_mlp']} "
+          f"brick_encode={launches['brick_encode']} [{card}]", flush=True)
     if tuple(rgb.shape) != (FRAMES, H, W, 3) or not torch.isfinite(rgb).all():
         fail("render output is not finite or has the wrong shape")
     if non_bg < 1e-3:
         fail("render is all background")
-    if launches == 0:
-        fail("the render did not run the fused_mlp kernel")
+    for name, counts in (("grid update", grid_launches), ("render", launches)):
+        if counts["fused_mlp"] == 0 or counts["brick_encode"] == 0:
+            fail(f"the {name} did not run the fused_mlp and brick_encode kernels")
 
-    # the same rays through the plain MLP: the slice agrees with its
-    # reference path (bf16 both ways; see TOL for the rounding allowance)
+    # the same rays through the plain encode and MLP: the slice agrees with
+    # its reference path (bf16 both ways; see TOL for the rounding allowance)
     from myc_nerfs_tpu_torch.geom import rays as rays_lib
     from myc_nerfs_tpu_torch.render.ngp_render import render_rays_ngp
 
@@ -220,21 +405,21 @@ def phase_slice(fm, card: str) -> int:
     rays_o = pose[:3, 3].expand(rays_d.shape)
     outs = []
     with torch.no_grad():
-        for use_fully in (True, False):
-            model.net.use_fully = use_fully
+        for kernels in (True, False):
+            model.use_encode_kernel = model.net.use_fully = kernels
             outs.append(render_rays_ngp(trainer.occ_cfg, trainer.rcfg, model,
                                         trainer.state.occ, rays_o, rays_d, bg).rgb)
-    model.net.use_fully = True
+    model.use_encode_kernel = model.net.use_fully = True
     diff = (outs[0] - outs[1]).abs().amax(-1)
-    print(f"slice: kernel vs plain MLP on {rays_d.shape[0]} rays: "
+    print(f"slice: kernels vs plain encode and MLP on {rays_d.shape[0]} rays: "
           f"max_abs_rgb_diff={diff.max().item():.3e} "
           f"rays_over_1e-2={(diff > 1e-2).float().mean().item():.5f}", flush=True)
     if (diff > 1e-2).float().mean().item() > 1e-3:
-        fail("kernel and plain MLP renders disagree")
-    return launches
+        fail("kernel and plain renders disagree")
+    return grid_launches, launches
 
 
-def phase_train(fm, card: str):
+def phase_train(card: str):
     from myc_nerfs_tpu_torch.cli import run_net
     from myc_nerfs_tpu_torch.core.config import load_config
     from myc_nerfs_tpu_torch.data.blender import RayBatcher
@@ -273,13 +458,10 @@ def phase_train(fm, card: str):
 
     trainer.train_block, trainer.grid_update = timed_block, timed_grid
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    fm.fused_mlp.launches = 0
-    fm.fused_mlp_backward.launches = 0
+    reset_launches()
     hist = run_net.train_loop(trainer, tcfg, data, TRAIN_STEPS, gen,
                               log=lambda msg: print(f"train: {msg}", flush=True))
-    torch.cuda.synchronize()
-    launches = (fm.fused_mlp.launches, fm.fused_mlp_backward.launches)
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     trainer.train_block, trainer.grid_update = train_block, grid_update
 
@@ -302,8 +484,8 @@ def phase_train(fm, card: str):
           f"loss_first={loss[0]:.5f} loss_last={loss[-1]:.5f} "
           f"psnr_first={bpsnr[0]:.3f} psnr_last={bpsnr[-1]:.3f} "
           f"skipped={skipped} n_rays_per_batch={trainer.n_rays_per_batch} "
-          f"fused_mlp_launches={launches[0]} fused_mlp_bwd_launches={launches[1]} "
-          f"[{card}]", flush=True)
+          f"launches " + " ".join(f"{k}={launches[k]}" for k in TRAIN_KERNELS)
+          + f" [{card}]", flush=True)
     if not finite:
         fail("training produced a non-finite loss or parameter")
     if skipped > TRAIN_STEPS // 2:
@@ -311,8 +493,8 @@ def phase_train(fm, card: str):
     if not bpsnr[-1] > bpsnr[0] + PSNR_RISE:
         fail(f"train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}, "
              f"not by {PSNR_RISE} dB")
-    if launches[1] == 0 or launches[0] == 0:
-        fail("training did not run the fused_mlp kernels")
+    if not all(launches[k] for k in TRAIN_KERNELS):
+        fail(f"training did not run every kernel of its path: {launches}")
 
     # the stages of one step at the final batch size: CUDA events, medians
     batch = RayBatcher(data.n_images, data.n_pixels, trainer.n_rays_per_batch, seed=1)
@@ -345,22 +527,50 @@ def phase_train(fm, card: str):
 
     # every parameter's gradient on one batch: kernel path vs plain path
     grads = {}
-    for use_fully in (True, False):
-        model.net.use_fully = use_fully
+    for kernels in (True, False):
+        model.use_encode_kernel = model.net.use_fully = kernels
         with torch.enable_grad():
             loss_t, _ = trainer.forward(rays_o, rays_d, target, bg, xi)
-            grads[use_fully] = trainer.backward(loss_t)
-    model.net.use_fully = True
+            grads[kernels] = trainer.backward(loss_t)
+    model.use_encode_kernel = model.net.use_fully = True
     names = [f"table{i}" for i in range(len(model.tables))] + list(model.net.LAYERS)
-    rel = {}
+    rel, ok = {}, True
     for n, a, b in zip(names, grads[True], grads[False]):
         rel[n] = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
-    print("train: gradient kernel vs plain path, |a-b|/|b|: "
+        ok &= rel[n] <= (TABLE_GRAD_REL_TOL if n.startswith("table") else GRAD_REL_TOL)
+    print("train: gradient kernels vs plain path (encode and MLP), |a-b|/|b|: "
           + " ".join(f"{n}={v:.2e}" for n, v in rel.items())
-          + f" tol={GRAD_REL_TOL:.2e}", flush=True)
-    if not all(v <= GRAD_REL_TOL for v in rel.values()):
+          + f" tol tables={TABLE_GRAD_REL_TOL:.2e} mlp={GRAD_REL_TOL:.2e}", flush=True)
+    if not ok:
         fail("kernel and plain path gradients disagree")
     return launches
+
+
+# where each kernel comes from: its source and the TPU kernel (file:line of
+# the function that reaches pl.pallas_call) it replaces; "also_replaces"
+# lists the other probe kernels of the same operation
+KERNELS = {
+    "fused_mlp": ("fused_mlp.cu", "myc_nerfs_tpu/ops/pallas/fused_mlp.py:34", []),
+    "fused_mlp_bwd": ("fused_mlp.cu", "myc_nerfs_tpu/ops/pallas/fused_mlp.py:47", []),
+    "brick_encode": ("grid_encode.cu", "scripts/probe_r2d_chunked.py:79",
+                     ["scripts/probe_r2c_rates.py:187", "scripts/probe_r2f_scale.py:40"]),
+    "brick_encode_bwd": ("grid_encode.cu", "scripts/probe_r2d_chunked.py:162", []),
+    "gather_rows": ("grid_probe.cu", "scripts/probe_r2_pallas.py:83",
+                    ["scripts/probe_r2_pallas.py:108", "scripts/probe_r2_pallas.py:138",
+                     "scripts/probe_r2b_kernel.py:60", "scripts/probe_r2b_kernel.py:87",
+                     "scripts/probe_r2c_rates.py:41", "scripts/probe_r2c_rates.py:62",
+                     "scripts/probe_r2c_rates.py:85", "scripts/probe_r2c_rates.py:162",
+                     "scripts/probe_r2d_chunked.py:46", "scripts/probe_r2e_bisect.py:30",
+                     "scripts/probe_r2e_bisect.py:45", "scripts/probe_r2e_bisect.py:60",
+                     "scripts/probe_r2e_bisect.py:83", "scripts/probe_r2e_bisect.py:102"]),
+    "gather_lanes": ("grid_probe.cu", "scripts/probe_r2_pallas.py:38",
+                     ["scripts/probe_r2_pallas.py:62"]),
+    "scatter_add_rows": ("grid_probe.cu", "scripts/probe_r2b_kernel.py:115",
+                         ["scripts/probe_r2b_kernel.py:141", "scripts/probe_r2c_rates.py:113",
+                          "scripts/probe_r2c_rates.py:135", "scripts/probe_r2d_chunked.py:126",
+                          "scripts/probe_r2e_bisect.py:121", "scripts/probe_r2f_scale.py:108"]),
+    "smem_scratch": ("grid_probe.cu", "scripts/probe_r2b_kernel.py:36", []),
+}
 
 
 def main() -> None:
@@ -373,21 +583,22 @@ def main() -> None:
 
     from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
 
-    path, secs = fm.build()
-    print(f"build: {fm.SOURCE.relative_to(fm._PKG.parent)} -> "
-          f"{path.relative_to(fm._PKG.parent)} in {secs:.2f} s", flush=True)
-    kstats = phase_kernel(fm)
-    bstats = phase_kernel_bwd(fm)
-    render_launches = phase_slice(fm, smi)
-    fwd_launches, bwd_launches = phase_train(fm, smi)
-    source = "myc_nerfs_tpu_torch/csrc/fused_mlp.cu"
-    print(json.dumps({"kernels": [
-        {"name": "fused_mlp", "route": "cuda", "source": source,
-         "replaces": "myc_nerfs_tpu/ops/pallas/fused_mlp.py:34",
-         "launches": render_launches + fwd_launches, **kstats},
-        {"name": "fused_mlp_bwd", "route": "cuda", "source": source,
-         "replaces": "myc_nerfs_tpu/ops/pallas/fused_mlp.py:47",
-         "launches": bwd_launches, **bstats}]}), flush=True)
+    phase_build()
+    stats = {"fused_mlp": phase_kernel(fm), "fused_mlp_bwd": phase_kernel_bwd(fm)}
+    stats["brick_encode"], stats["brick_encode_bwd"] = phase_kernel_encode()
+    probe = phase_probe()
+    grid, render = phase_slice(smi)
+    train = phase_train(smi)
+    kernels = []
+    for name, (source, replaces, also) in KERNELS.items():
+        if name in probe:
+            entry = probe[name]
+        else:
+            entry = {"launches": grid[name] + render[name] + train[name], **stats[name]}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"myc_nerfs_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "also_replaces": also, **entry})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,10 +6,12 @@ port imports ``torch`` and never ``jax``.
 
 Ported so far: the Instant-NGP path, training and rendering
 (``cli/run_net.py --task train|test|render``): brick3/hash grid encode, SH
-encode, the two NGP MLPs forward and backward through the hand-written
-Hopper kernels (``csrc/fused_mlp.cu``), the occupancy grid and its update,
-the fused march, the compositor, the Adam/EMA trainer, blender and
-synthetic data, and JAX-format checkpoints.
+encode, the two NGP MLPs and the brick3 encode forward and backward
+through hand-written Hopper kernels (``csrc/fused_mlp.cu``,
+``csrc/grid_encode.cu``), the occupancy grid and its update, the fused
+march, the compositor, the Adam/EMA trainer, blender and synthetic data,
+JAX-format checkpoints, and the gather/scatter-add rate probes
+(``cli/probe_grid.py``, ``csrc/grid_probe.cu``).
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,10 @@ myc_nerfs_tpu/models/ngp.py).
   width-3 last layer is zero-padded to 16 columns for the kernel and
   sliced back to 3.
 - ``NGPModel``: grid table(s) + SH direction encode + the network, for
-  ``grid_impl`` 'brick3' (default) and 'hash'.
+  ``grid_impl`` 'brick3' (default) and 'hash'. The brick3 encode runs
+  through the hand-written kernels of ops/cuda/grid_encode
+  (``use_encode_kernel``), as the reference runs its CUDA grid encode;
+  the 'hash' encode is torch ops.
 
 bf16 (``use_bf16``) follows the JAX package: MLP weights are bf16, the
 grid tables stay f32 while the brick encode interpolates in bf16, and both
@@ -250,6 +253,10 @@ class NGPModel(nn.Module):
         else:
             tables = [torch.zeros(s, device=device) for s in shapes]
         self.tables = nn.ParameterList([nn.Parameter(t) for t in tables])
+        # brick3: encode through ops/cuda/grid_encode (its kernels on the
+        # card), or, when False, through paired_encode_reference's torch ops
+        # and autograd (the plain path tests compare with)
+        self.use_encode_kernel = True
         self.net = NGPNetwork(in_dim=cfg.grid.out_dim,
                               density_n_neurons=cfg.density_n_neurons,
                               rgb_n_neurons=cfg.rgb_n_neurons,
@@ -266,9 +273,10 @@ class NGPModel(nn.Module):
         if self.cfg.grid_impl == "brick3":
             from ..ops import brick_grid as bg
 
-            return bg.paired_encode(list(self.tables), positions, self.cfg.grid,
-                                    self.levels, self.groups,
-                                    compute_dtype=self.compute_dtype)
+            encode = (bg.paired_encode if self.use_encode_kernel
+                      else bg.paired_encode_reference)
+            return encode(list(self.tables), positions, self.cfg.grid, self.levels,
+                          self.groups, compute_dtype=self.compute_dtype)
         return hash_encode(self.tables[0], positions, self.cfg.grid, self.levels)
 
     def forward(self, positions: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,11 @@ workarounds: one-hot matmuls for small tables (ONEHOT_MAX_ROWS) and 5x128
 selector matmuls that spread the per-axis tent weights over all 128 lanes.
 Here each level gathers its 8 live vertices and weights them directly: the
 same numbers with less work.
+
+``paired_encode`` is the entry point: on the card it runs the kernels of
+csrc/grid_encode.cu (ops/cuda/grid_encode.py). ``paired_encode_reference``
+and ``paired_encode_backward_reference`` are their plain versions, the CPU
+path and the kernels' oracles.
 """
 from __future__ import annotations
 
@@ -161,51 +166,19 @@ def _brick_ids(levels: BrickLevels, lv: int, brick: torch.Tensor) -> torch.Tenso
     return hash_bricks(brick) & (n - 1)
 
 
-def _interp_level(flat_table: torch.Tensor, width: int, row: torch.Tensor,
-                  off: int, u: torch.Tensor, F: int, wdtype) -> torch.Tensor:
-    """Features [N, F] of one level: the 8 live vertices of each sample's
-    cell in its row, trilinearly weighted. u [N, 3] brick-local coords."""
-    i0 = torch.clamp(torch.floor(u), 0.0, BRICK_VERTS - 2.0)
-    lo, hi = hat_tents(u, i0)
-    lo, hi = lo.to(wdtype), hi.to(wdtype)
-    # corner c = 4*dx + 2*dy + dz: weight (wx*wy)*wz, lane +25dx +5dy +dz
-    wx = torch.stack([lo[:, 0], hi[:, 0]], -1)[:, :, None, None]
-    wy = torch.stack([lo[:, 1], hi[:, 1]], -1)[:, None, :, None]
-    wz = torch.stack([lo[:, 2], hi[:, 2]], -1)[:, None, None, :]
-    w = (wx * wy * wz).reshape(-1, 8)
-    c = torch.arange(8, device=u.device)
-    corner_lane = (c >> 2) * (BRICK_VERTS * BRICK_VERTS) + ((c >> 1) & 1) * BRICK_VERTS + (c & 1)
-    i0 = i0.to(torch.int64)
-    lane0 = i0[:, 0] * (BRICK_VERTS * BRICK_VERTS) + i0[:, 1] * BRICK_VERTS + i0[:, 2]
-    base = (row * width + off + lane0)[:, None] + corner_lane     # [N, 8]
-    feats = []
-    for f in range(F):
-        vals = flat_table[base + f * ROW_VERTS].to(wdtype)       # [N, 8]
-        feats.append((vals * w).sum(-1, dtype=torch.float32).to(wdtype))
-    return torch.stack(feats, dim=-1)
-
-
-def paired_encode(tables: List[torch.Tensor], positions: torch.Tensor,
-                  cfg: HashGridConfig, levels: Optional[BrickLevels] = None,
-                  groups: Optional[LevelGroups] = None,
-                  compute_dtype=None) -> torch.Tensor:
-    """Encode positions [..., 3] in [0, 1] -> [..., n_levels * F].
-
-    ``compute_dtype=torch.bfloat16`` interpolates in bf16 while the tables
-    stay f32, like the JAX package's bf16 path.
-    """
-    levels = levels or compute_brick_levels(cfg)
-    groups = groups or compute_level_groups(levels)
+def _level_taps(pos: torch.Tensor, cfg: HashGridConfig, levels: BrickLevels,
+                groups: LevelGroups, wdtype):
+    """For each level, (group g, level lv, base [N, 8], w [N, 8]): the flat
+    index into group g's table of each of the 8 live vertices of the
+    sample's cell (feature 0; feature f is + f * 128) and its trilinear
+    weight in ``wdtype``. The forward gathers these, the backward adds
+    into them; the kernels in csrc/grid_encode.cu compute the same."""
     F = cfg.n_features
-    shape = positions.shape[:-1]
-    pos = positions.reshape(-1, 3)
-    wdtype = compute_dtype or tables[0].dtype
-
-    per_level: List[Optional[torch.Tensor]] = [None] * levels.n_levels
+    c = torch.arange(8, device=pos.device)
+    # corner c = 4*dx + 2*dy + dz: weight (wx*wy)*wz, lane +25dx +5dy +dz
+    corner_lane = (c >> 2) * (BRICK_VERTS * BRICK_VERTS) + ((c >> 1) & 1) * BRICK_VERTS + (c & 1)
     for g, members in enumerate(groups.groups):
-        table = tables[g]
-        width = table.shape[1]
-        flat = table.reshape(-1)
+        width = len(members) * F * ROW_VERTS
         key_lv = members[-1]
         brick, u_key = brick_coords(pos, levels.scales[key_lv])
         row = _brick_ids(levels, key_lv, brick)
@@ -218,7 +191,93 @@ def paired_encode(tables: List[torch.Tensor], positions: torch.Tensor,
                 inv_r = 1.0 / (levels.scales[key_lv] / levels.scales[lv])
                 base_c = torch.floor((BRICK_CELLS * brick - 0.5) * inv_r + 0.5)
                 u = (pos * levels.scales[lv] + 0.5) - base_c
-            per_level[lv] = _interp_level(flat, width, row, j * F * ROW_VERTS,
-                                          u, F, wdtype)
+            i0 = torch.clamp(torch.floor(u), 0.0, BRICK_VERTS - 2.0)
+            lo, hi = hat_tents(u, i0)
+            lo, hi = lo.to(wdtype), hi.to(wdtype)
+            wx = torch.stack([lo[:, 0], hi[:, 0]], -1)[:, :, None, None]
+            wy = torch.stack([lo[:, 1], hi[:, 1]], -1)[:, None, :, None]
+            wz = torch.stack([lo[:, 2], hi[:, 2]], -1)[:, None, None, :]
+            w = (wx * wy * wz).reshape(-1, 8)
+            i0 = i0.to(torch.int64)
+            lane0 = i0[:, 0] * (BRICK_VERTS * BRICK_VERTS) + i0[:, 1] * BRICK_VERTS + i0[:, 2]
+            base = (row * width + j * F * ROW_VERTS + lane0)[:, None] + corner_lane
+            yield g, lv, base, w
+
+
+def paired_encode_reference(tables: List[torch.Tensor], positions: torch.Tensor,
+                            cfg: HashGridConfig, levels: Optional[BrickLevels] = None,
+                            groups: Optional[LevelGroups] = None,
+                            compute_dtype=None) -> torch.Tensor:
+    """Encode positions [..., 3] in [0, 1] -> [..., n_levels * F] with torch
+    ops: the plain version of the brick_encode kernel, differentiable in the
+    tables through autograd.
+
+    ``compute_dtype=torch.bfloat16`` interpolates in bf16 while the tables
+    stay f32, like the JAX package's bf16 path: table values, weights and
+    each product are rounded to bf16, the 8 products are summed in f32 (in
+    f64 for f64 tables).
+    """
+    levels = levels or compute_brick_levels(cfg)
+    groups = groups or compute_level_groups(levels)
+    F = cfg.n_features
+    shape = positions.shape[:-1]
+    pos = positions.reshape(-1, 3)
+    wdtype = compute_dtype or tables[0].dtype
+    acc = torch.promote_types(wdtype, torch.float32)  # f64 for gradcheck
+    per_level: List[Optional[torch.Tensor]] = [None] * levels.n_levels
+    for g, lv, base, w in _level_taps(pos, cfg, levels, groups, wdtype):
+        flat = tables[g].reshape(-1)
+        feats = [(flat[base + f * ROW_VERTS].to(wdtype) * w)
+                 .sum(-1, dtype=acc).to(wdtype) for f in range(F)]
+        per_level[lv] = torch.stack(feats, dim=-1)
     out = torch.cat(per_level, dim=-1)
     return out.reshape(shape + (cfg.out_dim,))
+
+
+def paired_encode_backward_reference(tables: List[torch.Tensor], positions: torch.Tensor,
+                                     grad_out: torch.Tensor, cfg: HashGridConfig,
+                                     levels: Optional[BrickLevels] = None,
+                                     groups: Optional[LevelGroups] = None,
+                                     compute_dtype=None) -> List[torch.Tensor]:
+    """The tables' gradient for the output gradient ``grad_out`` [...,
+    n_levels * F]: the plain version of the brick_encode_bwd kernel. Each
+    (sample, level, corner, feature) contributes w * g, computed in the
+    compute dtype as the autograd of paired_encode_reference computes it
+    (rounded to bf16 in bf16), and is added in f32 (f64 for f64 tables)
+    with index_add_. Only the tables' shapes, dtypes and device are read."""
+    levels = levels or compute_brick_levels(cfg)
+    groups = groups or compute_level_groups(levels)
+    F = cfg.n_features
+    pos = positions.reshape(-1, 3)
+    wdtype = compute_dtype or tables[0].dtype
+    g_out = grad_out.reshape(-1, levels.n_levels, F).to(wdtype)
+    grads = [torch.zeros(t.shape, dtype=torch.promote_types(t.dtype, torch.float32),
+                         device=t.device) for t in tables]
+    for g, lv, base, w in _level_taps(pos, cfg, levels, groups, wdtype):
+        flat = grads[g].view(-1)
+        for f in range(F):
+            contrib = g_out[:, lv, f, None] * w
+            flat.index_add_(0, (base + f * ROW_VERTS).reshape(-1),
+                            contrib.reshape(-1).to(flat.dtype))
+    return grads
+
+
+def paired_encode(tables: List[torch.Tensor], positions: torch.Tensor,
+                  cfg: HashGridConfig, levels: Optional[BrickLevels] = None,
+                  groups: Optional[LevelGroups] = None,
+                  compute_dtype=None) -> torch.Tensor:
+    """Encode positions [..., 3] in [0, 1] -> [..., n_levels * F],
+    differentiable in the tables (not in the positions, as the JAX
+    package's stop_pos_grad).
+
+    CUDA tensors launch the brick_encode kernels (forward, and backward
+    when autograd asks for the tables' gradient) or raise; CPU tensors run
+    paired_encode_reference and paired_encode_backward_reference. See
+    ops/cuda/grid_encode.py.
+    """
+    from .cuda import grid_encode  # imports this module
+
+    levels = levels or compute_brick_levels(cfg)
+    groups = groups or compute_level_groups(levels)
+    return grid_encode.paired_encode(tables, positions, cfg, levels, groups,
+                                     compute_dtype)

@@ -1,0 +1,62 @@
+"""Builds the port's CUDA C++ sources with nvcc into csrc/build/.
+
+Each source is compiled on first use into a shared library with a plain C
+interface (loaded with ctypes by its wrapper module), keyed by a hash of
+the source and the flags, so a changed source or flag builds anew and an
+unchanged one is reused. A failed build raises with nvcc's output.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Sequence, Tuple
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the port's CUDA sources")
+
+
+def build(source: Path, extra_flags: Sequence[str] = ()) -> Tuple[Path, float]:
+    """Compile ``source`` into csrc/build/ unless a library built from the
+    same source and flags is already there. Returns (path, seconds spent
+    compiling; 0.0 when it was already built). Safe to call from several
+    threads or processes at once: each compiles to a temporary file and
+    renames it into place."""
+    source = Path(source)
+    flags = (*NVCC_FLAGS, *extra_flags)
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    if lib.exists():
+        return lib, 0.0
+    compiler = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: concurrent builds agree on one file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib, time.perf_counter() - t0

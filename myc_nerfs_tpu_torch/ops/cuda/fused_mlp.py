@@ -21,22 +21,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "fused_mlp.cu"
-BUILD_DIR = _PKG / "csrc" / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from . import _build
+
+SOURCE = _build.CSRC / "fused_mlp.cu"
 MAX_LAYERS = 8
 MAX_WIDTH = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,38 +79,10 @@ def fused_mlp_backward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor
     return g.to(x.dtype), dws
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build csrc/fused_mlp.cu")
-
-
 def build() -> Tuple[Path, float]:
-    """Compile csrc/fused_mlp.cu into csrc/build/ unless a library built
-    from the same source and flags is already there. Returns (path,
+    """Compile csrc/fused_mlp.cu (see _build.build). Returns (path,
     seconds spent compiling; 0.0 when it was already built)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfused_mlp_{tag}.so"
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: concurrent builds agree on one file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib, time.perf_counter() - t0
+    return _build.build(SOURCE)
 
 
 @functools.cache

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a GPU, against their plain PyTorch versions:
-the fused MLP forward and backward, and the NGP model's gradient.
+the fused MLP forward and backward, and the NGP model (MLP and grid-encode
+kernels) and its gradient.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without one. This
 file imports no JAX, so on a machine without it run:
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -73,9 +75,9 @@ def test_fused_mlp_refuses_what_the_kernel_does_not_take(cuda_device):
 
 
 def test_ngp_model_on_gpu_matches_cpu(cuda_device):
-    """The NGP model with its MLPs through the kernel on the card against
-    the same weights on the CPU through the plain version (f32; the encode
-    and SH run as torch ops on both)."""
+    """The NGP model with its MLPs and brick3 encode through the kernels on
+    the card against the same weights on the CPU through the plain
+    versions (f32; SH runs as torch ops on both)."""
     from myc_nerfs_tpu_torch.models import ngp
 
     cfg = ngp.NGPModelConfig(grid=ngp.HashGridConfig(
@@ -86,11 +88,13 @@ def test_ngp_model_on_gpu_matches_cpu(cuda_device):
     rng = np.random.default_rng(1)
     pos = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
     dirs = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
-    before = fm.fused_mlp.launches
+    before = fm.fused_mlp.launches, ge.brick_encode.launches
     with torch.no_grad():
         ref = cpu(pos, dirs)
         out = gpu(pos.to(cuda_device), dirs.to(cuda_device)).cpu()
-    assert fm.fused_mlp.launches == before + 2  # density and rgb MLPs
+    # density and rgb MLPs, one encode
+    assert (fm.fused_mlp.launches, ge.brick_encode.launches) == (before[0] + 2,
+                                                                 before[1] + 1)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
 
 
@@ -157,9 +161,11 @@ def test_fused_mlp_autograd_on_gpu(cuda_device):
 
 def test_ngp_model_gradient_on_gpu_matches_cpu(cuda_device):
     """The gradient of every NGPModel parameter (tables and MLP weights), on
-    the card through both kernels against the CPU through the plain
-    versions (f32). The table gradient is a scatter-add whose atomics sum
-    in no fixed order: rtol 1e-4 against each tensor's scale."""
+    the card through the MLP and encode kernels, forward and backward,
+    against the CPU through the plain versions (f32). The table gradient
+    is the encode kernel's scatter-add, whose atomics sum in no fixed
+    order, of contributions that carry the MLP kernels' own summation
+    order: rtol 1e-4 against each tensor's scale."""
     from myc_nerfs_tpu_torch.models import ngp
 
     cfg = ngp.NGPModelConfig(grid=ngp.HashGridConfig(
@@ -171,11 +177,13 @@ def test_ngp_model_gradient_on_gpu_matches_cpu(cuda_device):
     pos = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
     dirs = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
     tgt = torch.from_numpy(rng.standard_normal((5000, 4)).astype(np.float32))
-    before = fm.fused_mlp_backward.launches
+    before = fm.fused_mlp_backward.launches, ge.brick_encode_backward.launches
     ((cpu(pos, dirs) - tgt) ** 2).sum().backward()
     ((gpu(pos.to(cuda_device), dirs.to(cuda_device)) - tgt.to(cuda_device))
      ** 2).sum().backward()
-    assert fm.fused_mlp_backward.launches == before + 2  # density and rgb
+    # density and rgb MLPs, one encode
+    assert (fm.fused_mlp_backward.launches,
+            ge.brick_encode_backward.launches) == (before[0] + 2, before[1] + 1)
     for (name, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
         scale = max(1e-6, b.grad.abs().max().item())
         err = (a.grad.cpu() - b.grad).abs().max().item()

@@ -103,6 +103,9 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "import myc_nerfs_tpu_torch.cli.run_net\n"
+            "import myc_nerfs_tpu_torch.cli.probe_grid\n"
+            "import myc_nerfs_tpu_torch.ops.cuda.grid_encode\n"
+            "import myc_nerfs_tpu_torch.ops.cuda.grid_probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'myc_nerfs_tpu')]\n"
             "assert not bad, bad\n")
