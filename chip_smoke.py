@@ -4,24 +4,35 @@ Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: compiles the three sources under myc_nerfs_tpu_torch/csrc/
    (fused_mlp.cu, grid_encode.cu, grid_probe.cu) with nvcc, all at once,
-   and prints each one's build time.
+   and prints each one's build time; then counts the tensor-core (HMMA)
+   instructions of the bf16 fused-MLP kernels in the built library
+   (cuobjdump -sass), which must not be 0.
 3. kernel: the fused_mlp forward kernel against its plain PyTorch version
    at both NGP MLP shapes (density 32->64->16, rgb 32->64->64->16),
    262144 rows (one 4096-ray x 64-sample chunk), f32 and bf16, TF32 off;
-   max abs error against the stated tolerance and median times from CUDA
-   events.
+   max abs error against the stated tolerance; the device time of one call
+   (kernel_ms, plain_ms, library_ms: CUDA-graph replays, utils.timing.
+   graph_ms) and of one call from the host (call_ms, CUDA events);
+   library_ms is the cuBLAS chain (torch.mm + relu_ per layer, in the
+   dtype); bound_ms and share_of_bound against the H100 bound of the
+   bytes or flops (ops/cuda/fused_mlp.py::mlp_work).
 4. kernel_bwd: the backward kernel (fused_mlp_backward) against
    fused_mlp_backward_reference at the same shapes and rows: dx and every
-   dW, with their tolerances, and median times.
+   dW, with their tolerances, and the same times; library_ms is the cuBLAS
+   chain's forward and torch.autograd.grad (the kernel recomputes the
+   forward too).
 5. kernel_encode / kernel_encode_bwd: the brick3 grid-encode kernels
    (brick_encode, brick_encode_backward) against paired_encode_reference
    and paired_encode_backward_reference on the Car config's 8 level-group
    tables filled with uniform +-1 values, at 262144 positions from a real
    march of one 4096-ray chunk of the Car render, the first of them
    replaced by positions on cell and brick boundaries and at 0 and 1;
-   f32 and bf16, with the stated tolerances and median times.
+   f32 and bf16, with the stated tolerances, device times (graph_ms), the
+   time of one call from the host (call_ms) and the bound of the bytes
+   this run's positions must move (ops/cuda/grid_encode.py::encode_work).
 6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
-   line each; every probe must be correct.
+   line each, with their library calls and bounds; every probe must be
+   correct.
 7. slice: run_net.build_trainer on configs/ngp/Car.py (L16F2, 2^19,
    aabb_scale 4, fp16 -> bf16 MLPs, use_fully) with seeded random
    weights, 16 occupancy-grid updates, then two 800x800 frames rendered
@@ -38,9 +49,16 @@ Phases, each ending in one line (a failure exits non-zero):
    the step's stages are timed, and on one batch every parameter's
    gradient through the kernels is compared with the plain path's
    (use_encode_kernel=False, use_fully=False).
-Then a JSON line describing each kernel, and last the result line. Each
-main-path run (the grid updates, the render, the probes, the training)
-starts with every launch count at 0 and reads them right after it.
+9. profile (after every counted and timed run, so that no profiler window
+   precedes them): one render chunk stage by stage, one 800x800 frame and
+   one train block at 4096 rays under torch.profiler, with the device's
+   busy share of the wall time (utils/profiling.py).
+Then a JSON line describing each kernel (for the fused MLP and encode
+kernels its numbers are the bf16 ones, the Car slice's dtype, summed over
+the shapes; ``ms`` is graph_ms, ``call_ms`` median_ms), and last the
+result line. Each main-path run (the grid updates, the render, the probes,
+the training) starts with every launch count at 0 and reads them right
+after it.
 """
 from __future__ import annotations
 
@@ -50,10 +68,13 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import numpy as np
 import torch
 
-from myc_nerfs_tpu_torch.utils.timing import median_ms
+from myc_nerfs_tpu_torch.utils import profiling
+from myc_nerfs_tpu_torch.utils.timing import graph_ms, median_ms
 
 ROWS = 262144                       # 4096 rays x 64 samples
 SHAPES = {"density": (32, 64, 16), "rgb": (32, 64, 64, 16)}
@@ -77,11 +98,19 @@ PSNR_RISE = 9.0
 # kernel path vs plain path gradient, per parameter, as |a-b| / |b| over
 # the whole tensor. MLP weights: the plain path's autograd rounds the
 # gradient to bf16 (up to 2^-9 of each element) at every layer boundary
-# before dW, and the kernel does not; allow two bf16 ulps (2^-7). Tables:
-# the same contributions, added by f32 atomics in another order (1e-5).
+# before dW, and the kernel does not; allow two bf16 ulps (2^-7). Tables,
+# the encode kernels alone: against the plain encode under the same MLP
+# kernels, the same contributions added by f32 atomics in another order
+# (1e-5). Tables through both kernels against the plain path: their
+# gradient is the MLP's dx, whose bf16 elements may each sit one rounding
+# away from the plain path's (the tensor cores sum in another order than
+# cuBLAS). 15 runs of this phase on an H100 80GB HBM3 at 700 W read 1.4e-5
+# to 8.9e-4; the limit is 3.4x the largest.
 GRAD_REL_TOL = 2.0 ** -7
 TABLE_GRAD_REL_TOL = 1e-5
+TABLE_E2E_REL_TOL = 3e-3
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
+SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel")
 BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
 
 
@@ -137,19 +166,65 @@ def phase_build() -> None:
               f"in {secs:.2f} s", flush=True)
     print(f"build: all sources in {time.perf_counter() - t0:.2f} s (in parallel)",
           flush=True)
+    # the bf16 MLP kernels must run on the tensor cores: HMMA in their SASS
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(results[0][0])], capture_output=True,
+                          text=True, check=True).stdout
+    hmma, kernel = {k: 0 for k in SASS_KERNELS}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = next((k for k in SASS_KERNELS if k in line), None)
+        elif kernel and "HMMA" in line:
+            hmma[kernel] += 1
+    print("sass: HMMA instructions (cuobjdump -sass) "
+          + " ".join(f"{k}={n}" for k, n in hmma.items()), flush=True)
+    if not all(hmma.values()):
+        fail(f"a bf16 fused-MLP kernel has no tensor-core instruction: {hmma}")
+
+
+def library_chain(x, ws):
+    """The cuBLAS yardstick of the fused MLP (library_ms): torch.mm and
+    relu_ per layer in x's dtype. Timed here only; the port never calls it."""
+    h = x
+    for i, w in enumerate(ws):
+        h = torch.mm(h, w)
+        if i + 1 < len(ws):
+            h = h.relu_()
+    return h
+
+
+def mlp_inputs(widths, dtype, g):
+    x = torch.rand((ROWS, widths[0]), device="cuda", generator=g).to(dtype)
+    ws = [(torch.randn((widths[i], widths[i + 1]), device="cuda",
+                       generator=g) / widths[i] ** 0.5).to(dtype)
+          for i in range(len(widths) - 1)]
+    return x, ws
+
+
+def bound_fields(t_k: float, work: dict) -> str:
+    """The kernel's time beside its H100 bound (mlp_work, encode_work)."""
+    return (f"kernel_ms={t_k:.4f} bound_ms={work['bound_ms']:.4f} "
+            f"bound_by={work['bound_by']} share_of_bound={work['bound_ms'] / t_k:.3f}")
+
+
+def add_bf16(acc: dict, err: float, t_k: float, t_c: float, t_p: float, t_l: float,
+             work: dict) -> None:
+    """Sum the bf16 numbers of the shapes into one JSON entry."""
+    acc["max_abs_err"] = max(acc.get("max_abs_err", 0.0), err)
+    for k, v in (("ms", t_k), ("call_ms", t_c), ("plain_ms", t_p), ("library_ms", t_l),
+                 ("bound_ms", work["bound_ms"])):
+        acc[k] = acc.get(k, 0.0) + v
+    acc["bound_by"] = work["bound_by"]
 
 
 def phase_kernel(fm) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, widths in SHAPES.items():
-            x = torch.rand((ROWS, widths[0]), device="cuda", generator=g).to(dtype)
-            ws = [(torch.randn((widths[i], widths[i + 1]), device="cuda",
-                               generator=g) / widths[i] ** 0.5).to(dtype)
-                  for i in range(len(widths) - 1)]
+            x, ws = mlp_inputs(widths, dtype, g)
             with torch.no_grad():
                 y = fm.fused_mlp(x, ws)
                 ref = fm.fused_mlp_reference(x, ws)
@@ -157,58 +232,64 @@ def phase_kernel(fm) -> dict:
                 err = (y.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
                 tol = TOL[dtype](scale)
-                t_k = median_ms(lambda: fm.fused_mlp(x, ws))
-                t_p = median_ms(lambda: fm.fused_mlp_reference(x, ws))
+                t_k = graph_ms(lambda: fm.fused_mlp(x, ws))
+                t_c = median_ms(lambda: fm.fused_mlp(x, ws))
+                t_p = graph_ms(lambda: fm.fused_mlp_reference(x, ws))
+                t_l = graph_ms(lambda: library_chain(x, ws))
+            work = fm.mlp_work(widths, ROWS, dtype)
             ok = err <= tol
             print(f"kernel: fused_mlp {name} {'x'.join(map(str, widths))} "
-                  f"{str(dtype).split('.')[-1]} rows={ROWS} tf32=off "
+                  f"{dtype_name(dtype)} rows={ROWS} tf32=off "
                   f"max_abs_err={err:.3e} tol={tol:.3e} "
-                  f"{'ok' if ok else 'BREACH'} kernel_ms={t_k:.4f} "
-                  f"plain_ms={t_p:.4f}", flush=True)
+                  f"{'ok' if ok else 'BREACH'} {bound_fields(t_k, work)} call_ms={t_c:.4f} "
+                  f"plain_ms={t_p:.4f} library_ms={t_l:.4f}", flush=True)
             if not ok:
                 fail(f"fused_mlp {name} {dtype}: max abs err {err} > {tol}")
             if dtype == torch.bfloat16:  # the Car slice's dtype
-                worst = max(worst, err)
-                ms += t_k
-                plain_ms += t_p
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+                add_bf16(out, err, t_k, t_c, t_p, t_l, work)
+    return out
 
 
 def phase_kernel_bwd(fm) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, widths in SHAPES.items():
-            x = torch.rand((ROWS, widths[0]), device="cuda", generator=g).to(dtype)
-            ws = [(torch.randn((widths[i], widths[i + 1]), device="cuda",
-                               generator=g) / widths[i] ** 0.5).to(dtype)
-                  for i in range(len(widths) - 1)]
+            x, ws = mlp_inputs(widths, dtype, g)
             gy = torch.randn((ROWS, widths[-1]), device="cuda", generator=g).to(dtype)
             dx, dws = fm.fused_mlp_backward(x, ws, gy)
             dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, gy)
             torch.cuda.synchronize()
             tol_dx, tol_dw = BWD_TOL[dtype]
-            errs, ok = [], True
+            errs, ok, worst = [], True, 0.0
             for i, (a, b) in enumerate([(dx, dx_ref)] + list(zip(dws, dws_ref))):
                 err = (a.float() - b.float()).abs().max().item()
                 tol = (tol_dx if i == 0 else tol_dw) * max(1.0, b.float().abs().max().item())
                 errs.append(f"{'dx' if i == 0 else f'dW{i - 1}'}={err:.3e}/{tol:.3e}")
                 ok &= err <= tol
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-            t_k = median_ms(lambda: fm.fused_mlp_backward(x, ws, gy))
-            t_p = median_ms(lambda: fm.fused_mlp_backward_reference(x, ws, gy))
+                worst = max(worst, err)
+            # the partial dWs are summed in a fixed order: the same bits again
+            dx2, dws2 = fm.fused_mlp_backward(x, ws, gy)
+            same = torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
+            ok &= same
+            xl = x.clone().requires_grad_()
+            wl = [w.clone().requires_grad_() for w in ws]
+            t_k = graph_ms(lambda: fm.fused_mlp_backward(x, ws, gy))
+            t_c = median_ms(lambda: fm.fused_mlp_backward(x, ws, gy))
+            t_p = graph_ms(lambda: fm.fused_mlp_backward_reference(x, ws, gy))
+            t_l = graph_ms(lambda: torch.autograd.grad(library_chain(xl, wl), [xl] + wl, gy))
+            work = fm.mlp_work(widths, ROWS, dtype, backward=True)
             print(f"kernel_bwd: fused_mlp_backward {name} "
-                  f"{'x'.join(map(str, widths))} {str(dtype).split('.')[-1]} "
+                  f"{'x'.join(map(str, widths))} {dtype_name(dtype)} "
                   f"rows={ROWS} tf32=off max_abs_err/tol {' '.join(errs)} "
-                  f"{'ok' if ok else 'BREACH'} kernel_ms={t_k:.4f} "
-                  f"plain_ms={t_p:.4f}", flush=True)
+                  f"deterministic={same} {'ok' if ok else 'BREACH'} "
+                  f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
+                  f"library_ms={t_l:.4f}", flush=True)
             if not ok:
                 fail(f"fused_mlp_backward {name} {dtype}: {errs}")
             if dtype == torch.bfloat16:
-                ms += t_k
-                plain_ms += t_p
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+                add_bf16(out, worst, t_k, t_c, t_p, t_l, work)
+    return out
 
 
 def encode_inputs():
@@ -273,12 +354,15 @@ def phase_kernel_encode():
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tol = ge.FWD_TOL[dtype] * max(1.0, ref.float().abs().max().item())
-            t_k = median_ms(lambda: ge.brick_encode(tables, pos, *geo, dtype))
-            t_p = median_ms(lambda: bg.paired_encode_reference(tables, pos, *geo, dtype))
+            t_k = graph_ms(lambda: ge.brick_encode(tables, pos, *geo, dtype))
+            t_c = median_ms(lambda: ge.brick_encode(tables, pos, *geo, dtype))
+            t_p = graph_ms(lambda: bg.paired_encode_reference(tables, pos, *geo, dtype))
+        work = ge.encode_work(tables, pos, *geo, dtype)
         ok = err <= tol and out.dtype == dtype and bool(torch.isfinite(out).all())
         print(f"kernel_encode: brick_encode {shape} {dtype_name(dtype)} "
               f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'BREACH'} "
-              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f}", flush=True)
+              f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
+              f"library_ms=null", flush=True)
         if not ok:
             fail(f"brick_encode {dtype}: max abs err {err} > {tol}")
         g = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
@@ -292,19 +376,25 @@ def phase_kernel_encode():
             errs.append(f"table{i}={e:.3e}/{tol:.3e}")
             ok &= e <= tol and a.shape == b.shape
             worst = max(worst, e)
-        b_k = median_ms(lambda: ge.brick_encode_backward(tables, pos, g, *geo, dtype))
-        b_p = median_ms(lambda: bg.paired_encode_backward_reference(tables, pos, g, *geo,
-                                                                    dtype))
+        b_k = graph_ms(lambda: ge.brick_encode_backward(tables, pos, g, *geo, dtype))
+        b_c = median_ms(lambda: ge.brick_encode_backward(tables, pos, g, *geo, dtype))
+        b_p = graph_ms(lambda: bg.paired_encode_backward_reference(tables, pos, g, *geo,
+                                                                   dtype))
+        b_work = ge.encode_work(tables, pos, *geo, dtype, backward=True)
         print(f"kernel_encode_bwd: brick_encode_backward {shape} {dtype_name(dtype)} "
               f"max_abs_err/tol {' '.join(errs)} (tol {ge.BWD_TOL:g} of each table "
               f"gradient's scale: the same contributions, added by f32 atomics "
-              f"in no fixed order) {'ok' if ok else 'BREACH'} kernel_ms={b_k:.4f} "
-              f"plain_ms={b_p:.4f}", flush=True)
+              f"in no fixed order) {'ok' if ok else 'BREACH'} {bound_fields(b_k, b_work)} "
+              f"call_ms={b_c:.4f} plain_ms={b_p:.4f} library_ms=null", flush=True)
         if not ok:
             fail(f"brick_encode_backward {dtype}: {errs}")
         if dtype == torch.bfloat16:  # the Car slice's dtype
-            fwd = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
-            bwd = {"max_abs_err": worst, "ms": b_k, "plain_ms": b_p}
+            fwd = {"max_abs_err": err, "ms": t_k, "call_ms": t_c, "plain_ms": t_p,
+                   "library_ms": None,
+                   "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
+            bwd = {"max_abs_err": worst, "ms": b_k, "call_ms": b_c, "plain_ms": b_p,
+                   "library_ms": None,
+                   "bound_ms": b_work["bound_ms"], "bound_by": b_work["bound_by"]}
     return fwd, bwd
 
 
@@ -331,9 +421,21 @@ def phase_probe():
         if launches[kernel] == 0:
             fail(f"the probes did not run the {kernel} kernel")
         r = by_name[name]
-        stats[kernel] = {"launches": launches[kernel], "max_abs_err": r["max_abs_err"],
-                         "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        stats[kernel] = {"launches": launches[kernel],
+                         **{k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                              "library_ms", "bound_ms", "bound_by")}}
     return stats
+
+
+def chunk_rays(pose):
+    """About 4096 rays spread over an 800x800 frame seen from pose."""
+    from myc_nerfs_tpu_torch.geom import rays as rays_lib
+
+    pose = pose.to("cuda")
+    d = rays_lib.get_ray_directions(H, W, (W * 0.6, W * 0.6), device="cuda")
+    rays_d = d.reshape(-1, 3)[::157][:4096] @ pose[:3, :3].T
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return pose[:3, 3].expand(rays_d.shape), rays_d
 
 
 def phase_slice(card: str):
@@ -364,6 +466,7 @@ def phase_slice(card: str):
     grid_launches = read_launches()
     occ_frac = trainer.state.occ.bitfield.float().mean().item()
 
+    held_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -379,7 +482,7 @@ def phase_slice(card: str):
     print(f"slice: Car L16F2 2^19 aabb_scale=4 bf16 use_fully "
           f"grid_updates=16 ({t_grid:.2f} s) occupied={occ_frac:.4f} "
           f"frames={FRAMES}x{H}x{W} render_s={t_render:.3f} "
-          f"rays_per_s={rays_s:.0f} peak_mem_gib={peak_gib:.2f} "
+          f"rays_per_s={rays_s:.0f} peak_mem_gib={peak_gib:.2f} (held before: {held_gib:.2f}) "
           f"non_background={non_bg:.4f} "
           f"grid_update_launches fused_mlp={grid_launches['fused_mlp']} "
           f"brick_encode={grid_launches['brick_encode']} "
@@ -395,14 +498,9 @@ def phase_slice(card: str):
 
     # the same rays through the plain encode and MLP: the slice agrees with
     # its reference path (bf16 both ways; see TOL for the rounding allowance)
-    from myc_nerfs_tpu_torch.geom import rays as rays_lib
     from myc_nerfs_tpu_torch.render.ngp_render import render_rays_ngp
 
-    pose = poses[0].to("cuda")
-    d = rays_lib.get_ray_directions(H, W, (W * 0.6, W * 0.6), device="cuda")
-    rays_d = d.reshape(-1, 3)[::157][:4096] @ pose[:3, :3].T
-    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    rays_o = pose[:3, 3].expand(rays_d.shape)
+    rays_o, rays_d = chunk_rays(poses[0])
     outs = []
     with torch.no_grad():
         for kernels in (True, False):
@@ -416,7 +514,27 @@ def phase_slice(card: str):
           f"rays_over_1e-2={(diff > 1e-2).float().mean().item():.5f}", flush=True)
     if (diff > 1e-2).float().mean().item() > 1e-3:
         fail("kernel and plain renders disagree")
+
     return grid_launches, launches
+
+
+def short_name(kernel: str) -> str:
+    for noise in ("void ", "(anonymous namespace)::", "at::native::", "std::"):
+        kernel = kernel.replace(noise, "")
+    return kernel[:72]
+
+
+def print_profile(what: str, prof: dict, card: str, per: int = 1, wall_ms=None) -> None:
+    """One line: device ms (per step when per > 1), the device's busy share
+    of the wall time (of ``wall_ms``, timed without the profiler, when
+    given), and the largest device events by name."""
+    wall = prof["wall_ms"] if wall_ms is None else wall_ms
+    print(f"{what}: torch.profiler device_ms={prof['device_ms'] / per:.4f} "
+          f"wall_ms={wall / per:.4f} (profiler on: {prof['wall_ms'] / per:.4f}) "
+          f"busy_share={prof['device_ms'] / wall:.3f} events={prof['events']} "
+          + " | ".join(f"{short_name(k)}: {v[0] / per:.4f}ms/{v[1]}"
+                     for k, v in prof["kernels"].items())
+          + f" other={prof['other_ms'] / per:.4f}ms [{card}]", flush=True)
 
 
 def phase_train(card: str):
@@ -457,6 +575,7 @@ def phase_train(card: str):
         return out
 
     trainer.train_block, trainer.grid_update = timed_block, timed_grid
+    held_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     hist = run_net.train_loop(trainer, tcfg, data, TRAIN_STEPS, gen,
@@ -480,6 +599,7 @@ def phase_train(card: str):
           f"blocks={len(hist)} s_per_step_median={step_s:.4f} "
           f"train_rays_per_s={rays / t_total:.0f} "
           f"samples_per_s={samples / t_total:.0f} peak_mem_gib={peak_gib:.2f} "
+          f"(held before: {held_gib:.2f}) "
           f"grid_update_s_median={sorted(grid_s)[len(grid_s) // 2]:.4f} "
           f"loss_first={loss[0]:.5f} loss_last={loss[-1]:.5f} "
           f"psnr_first={bpsnr[0]:.3f} psnr_last={bpsnr[-1]:.3f} "
@@ -525,25 +645,79 @@ def phase_train(card: str):
           + f" grid_update={grid_ms:.3f} (per {tcfg.update_den_freq} steps) "
           f"[{card}]", flush=True)
 
-    # every parameter's gradient on one batch: kernel path vs plain path
+    # every parameter's gradient on one batch: the kernel path against the
+    # plain path, and the encode kernels against the plain encode under the
+    # same MLP kernels; (encode kernel, MLP kernel) for each run
     grads = {}
-    for kernels in (True, False):
-        model.use_encode_kernel = model.net.use_fully = kernels
+    for encode, mlp in ((True, True), (False, False), (False, True)):
+        model.use_encode_kernel, model.net.use_fully = encode, mlp
         with torch.enable_grad():
             loss_t, _ = trainer.forward(rays_o, rays_d, target, bg, xi)
-            grads[kernels] = trainer.backward(loss_t)
+            grads[encode, mlp] = trainer.backward(loss_t)
     model.use_encode_kernel = model.net.use_fully = True
     names = [f"table{i}" for i in range(len(model.tables))] + list(model.net.LAYERS)
-    rel, ok = {}, True
-    for n, a, b in zip(names, grads[True], grads[False]):
-        rel[n] = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
-        ok &= rel[n] <= (TABLE_GRAD_REL_TOL if n.startswith("table") else GRAD_REL_TOL)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    full = {n: rel(a, b) for n, a, b in zip(names, grads[True, True], grads[False, False])}
+    enc = {n: rel(a, b) for n, a, b in zip(names, grads[True, True], grads[False, True])
+           if n.startswith("table")}
+    ok = all(v <= (TABLE_E2E_REL_TOL if n.startswith("table") else GRAD_REL_TOL)
+             for n, v in full.items())
+    ok &= all(v <= TABLE_GRAD_REL_TOL for v in enc.values())
     print("train: gradient kernels vs plain path (encode and MLP), |a-b|/|b|: "
-          + " ".join(f"{n}={v:.2e}" for n, v in rel.items())
-          + f" tol tables={TABLE_GRAD_REL_TOL:.2e} mlp={GRAD_REL_TOL:.2e}", flush=True)
+          + " ".join(f"{n}={v:.2e}" for n, v in full.items())
+          + f" tol tables={TABLE_E2E_REL_TOL:.2e} mlp={GRAD_REL_TOL:.2e}; tables, "
+          f"encode kernels vs plain encode under the MLP kernels: "
+          + " ".join(f"{n}={v:.2e}" for n, v in enc.items())
+          + f" tol {TABLE_GRAD_REL_TOL:.2e}", flush=True)
     if not ok:
         fail("kernel and plain path gradients disagree")
-    return launches
+
+    return launches, (trainer, tcfg, data, gen)
+
+
+def phase_profile(card: str, train_ctx) -> None:
+    """Where the time goes, after every counted and timed run: one render
+    chunk stage by stage, one 800x800 frame (the slice's model, built
+    again) and one train block of update_den_freq steps at 4096 rays
+    (the trained model) under torch.profiler, each also timed without it,
+    for the device's busy share of the wall time."""
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.core.config import load_config
+    from myc_nerfs_tpu_torch.data.blender import RayBatcher
+    from myc_nerfs_tpu_torch.geom.camera_path import path_spherical
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer, _ = run_net.build_trainer(load_config("configs/ngp/Car.py"), gen, device="cuda")
+    for _ in range(16):
+        trainer.state = trainer.state._replace(occ=trainer.grid_update(trainer.state.occ, gen))
+    intr = torch.tensor([[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1.0]])
+    pose = run_net.path_pose(path_spherical(FRAMES)[1])
+    bg = torch.tensor(trainer.cfg.background_color, device="cuda")
+    split = profiling.render_chunk_split(trainer, *chunk_rays(pose), bg)
+    print("profile: render chunk of 4096 rays, ms by stage (CUDA events, median of 20; "
+          "mlp_device: device time alone): "
+          + " ".join(f"{k}={v:.4f}" for k, v in split.items()) + f" [{card}]", flush=True)
+    wall_ms = profiling.wall_ms(lambda: trainer.render_image(pose, intr, H, W))
+    prof = profiling.device_profile(lambda: trainer.render_image(pose, intr, H, W))
+    print_profile("profile: one 800x800 frame", prof, card, wall_ms=wall_ms)
+
+    trainer, tcfg, data, gen = train_ctx
+    S, n_rays = tcfg.update_den_freq, 4096
+    batch = RayBatcher(data.n_images, data.n_pixels, n_rays, seed=2)
+    ids = [batch.next() for _ in range(S)]
+    rays = [data.rays_for_pixels(*i) for i in ids]
+    block = (np.stack([o for o, _ in rays]), np.stack([d for _, d in rays]),
+             np.stack([data.pixel_values(*i) for i in ids]))
+    metrics = trainer.train_block(*block, generator=gen)
+    samples = metrics["n_samples"].float().mean().item()
+    wall_ms = profiling.wall_ms(lambda: trainer.train_block(*block, generator=gen))
+    prof = profiling.device_profile(lambda: trainer.train_block(*block, generator=gen))
+    print_profile(f"profile: one train block of {S} steps at {n_rays} rays "
+                  f"({samples:.0f} samples per step), per step", prof, card, per=S,
+                  wall_ms=wall_ms)
 
 
 # where each kernel comes from: its source and the TPU kernel (file:line of
@@ -588,7 +762,8 @@ def main() -> None:
     stats["brick_encode"], stats["brick_encode_bwd"] = phase_kernel_encode()
     probe = phase_probe()
     grid, render = phase_slice(smi)
-    train = phase_train(smi)
+    train, train_ctx = phase_train(smi)
+    phase_profile(smi, train_ctx)
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         if name in probe:

@@ -14,8 +14,15 @@ random samples, in Mrows/s, where a row is one (sample, group).
 
 Prints one JSON line per probe: {"probe": ..., "ms": ..., "plain_ms": ...,
 "mrows_per_s": ..., "correct": ...} and the shapes. Each kernel is checked
-against its plain PyTorch version on the same inputs. Needs a CUDA device;
-without one it exits non-zero and prints no probe.
+against its plain PyTorch version on the same inputs. Times are device
+milliseconds of one call (utils.timing.graph_ms), except the shared-memory
+scratch's; ``call_ms`` is one call timed from the host with CUDA events
+(utils.timing.median_ms, host time included), the scratch's only time. The rate records also
+carry ``library_ms``, one PyTorch call that computes the same function
+(``index_select``, ``torch.gather``, ``index_add_``; none for the encode),
+and ``bound_ms``/``bound_by``, the H100 bound of the bytes the function must
+move (utils.timing.roofline). Needs a CUDA device; without one it exits
+non-zero and prints no probe.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 
 from ..ops import brick_grid as bg
 from ..ops.cuda import _build, grid_encode as ge, grid_probe as gp
-from ..utils.timing import median_ms
+from ..utils.timing import graph_ms, median_ms, roofline
 
 T, W = 4096, 256
 N_RATE = 1 << 17
@@ -61,10 +68,17 @@ def _probe_gathers(dev, gen, emit) -> None:
         for n in sizes:
             idx = torch.randint(0, T, (n,), device=dev, generator=gen, dtype=torch.int32)
             err = _err(gp.gather_rows(tab, idx), gp.gather_rows_reference(tab, idx))
-            ms[n] = median_ms(lambda: gp.gather_rows(tab, idx))
+            ms[n] = graph_ms(lambda: gp.gather_rows(tab, idx))
             if n == N_RATE:
-                plain = median_ms(lambda: gp.gather_rows_reference(tab, idx))
-                emit(name, T=T, W=W, N=n, ms=ms[n], plain_ms=plain,
+                plain = graph_ms(lambda: gp.gather_rows_reference(tab, idx))
+                library = graph_ms(lambda: torch.index_select(tab, 0, idx))
+                # idx, the distinct rows read, the rows written
+                rows_read = torch.unique(idx).numel()
+                bound = roofline(0, 4 * n + (rows_read + n) * W * tab.element_size())
+                call = median_ms(lambda: gp.gather_rows(tab, idx))
+                emit(name, T=T, W=W, N=n, ms=ms[n], call_ms=call, plain_ms=plain,
+                     library_ms=library,
+                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                      mrows_per_s=_rate(n, ms[n]), plain_mrows_per_s=_rate(n, plain),
                      max_abs_err=err, correct=err == 0.0)
             elif err != 0.0:
@@ -84,10 +98,16 @@ def _probe_scatter(dev, gen, emit) -> None:
         ref = gp.scatter_add_rows_reference(idx, val, T)
         err = (out - ref).abs().max().item()
         tol = SCATTER_TOL * max(1.0, ref.abs().max().item())
-        ms[n] = median_ms(lambda: gp.scatter_add_rows(idx, val, T))
+        ms[n] = graph_ms(lambda: gp.scatter_add_rows(idx, val, T))
         if n == N_RATE:
-            plain = median_ms(lambda: gp.scatter_add_rows_reference(idx, val, T))
-            emit("scatter_add_rows_f32", T=T, W=W, N=n, ms=ms[n], plain_ms=plain,
+            plain = graph_ms(lambda: gp.scatter_add_rows_reference(idx, val, T))
+            library = graph_ms(lambda: torch.zeros((T, W), device=dev).index_add_(0, idx, val))
+            # idx and val read, the whole [T, W] sum written
+            bound = roofline(n * W, 4 * n + 4 * n * W + 4 * T * W)
+            call = median_ms(lambda: gp.scatter_add_rows(idx, val, T))
+            emit("scatter_add_rows_f32", T=T, W=W, N=n, ms=ms[n], call_ms=call,
+                 plain_ms=plain,
+                 library_ms=library, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                  mrows_per_s=_rate(n, ms[n]), plain_mrows_per_s=_rate(n, plain),
                  max_abs_err=err, tol=tol, correct=err <= tol)
         elif err > tol:
@@ -102,9 +122,17 @@ def _probe_lanes(dev, gen, emit) -> None:
         tab = torch.randn((r, c), device=dev, generator=gen)
         idx = torch.randint(0, c, (r, c), device=dev, generator=gen, dtype=torch.int32)
         err = _err(gp.gather_lanes(tab, idx), gp.gather_lanes_reference(tab, idx))
-        ms = median_ms(lambda: gp.gather_lanes(tab, idx))
-        plain = median_ms(lambda: gp.gather_lanes_reference(tab, idx))
-        emit(f"gather_lanes_{r}x{c}", ms=ms, plain_ms=plain,
+        ms = graph_ms(lambda: gp.gather_lanes(tab, idx))
+        plain = graph_ms(lambda: gp.gather_lanes_reference(tab, idx))
+        idx64 = idx.long()  # torch.gather takes int64 indices
+        library = graph_ms(lambda: torch.gather(tab, 1, idx64))
+        # idx, the distinct elements read, the output written
+        read = torch.unique(idx64 + c * torch.arange(r, device=dev)[:, None]).numel()
+        bound = roofline(0, 4 * (2 * r * c + read))
+        call = median_ms(lambda: gp.gather_lanes(tab, idx))
+        emit(f"gather_lanes_{r}x{c}", ms=ms, call_ms=call, plain_ms=plain,
+             library_ms=library,
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
              gelem_per_s=r * c / ms / 1e6, max_abs_err=err, correct=err == 0.0)
 
 
@@ -113,7 +141,10 @@ def _probe_scratch(dev, emit) -> None:
         err = _err(gp.smem_scratch(kb * 1024, dev), gp.smem_scratch_reference(kb * 1024, dev))
         ms = median_ms(lambda: gp.smem_scratch(kb * 1024, dev))
         plain = median_ms(lambda: gp.smem_scratch_reference(kb * 1024, dev))
-        emit(f"smem_scratch_{kb}KB", bytes=kb * 1024, ms=ms, plain_ms=plain,
+        # its output, one float, is all it must write to device memory
+        bound = roofline(0, 4)
+        emit(f"smem_scratch_{kb}KB", bytes=kb * 1024, ms=ms, call_ms=ms, plain_ms=plain,
+             library_ms=None, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
              max_abs_err=err, correct=err == 0.0)
     try:
         gp.smem_scratch(REFUSED_KB * 1024, dev)
@@ -143,10 +174,12 @@ def _probe_encode(dev, gen, emit) -> None:
         ref = bg.paired_encode_reference(tables, pos, cfg, levels, groups, dtype)
         err = (out.float() - ref.float()).abs().max().item()
         tol = ge.FWD_TOL[dtype] * max(1.0, ref.float().abs().max().item())
-        ms = median_ms(lambda: ge.brick_encode(tables, pos, cfg, levels, groups, dtype))
-        plain = median_ms(lambda: bg.paired_encode_reference(tables, pos, cfg, levels,
-                                                             groups, dtype))
-    emit("brick_encode_fwd", **shape, ms=ms, plain_ms=plain, mrows_per_s=_rate(rows, ms),
+        ms = graph_ms(lambda: ge.brick_encode(tables, pos, cfg, levels, groups, dtype))
+        plain = graph_ms(lambda: bg.paired_encode_reference(tables, pos, cfg, levels,
+                                                            groups, dtype))
+        call = median_ms(lambda: ge.brick_encode(tables, pos, cfg, levels, groups, dtype))
+    emit("brick_encode_fwd", **shape, ms=ms, call_ms=call, plain_ms=plain,
+         mrows_per_s=_rate(rows, ms),
          plain_mrows_per_s=_rate(rows, plain), max_abs_err=err, tol=tol,
          correct=err <= tol)
     g = torch.randn(out.shape, device=dev, generator=gen).to(out.dtype)
@@ -157,11 +190,14 @@ def _probe_encode(dev, gen, emit) -> None:
         e = (a - b).abs().max().item()
         ok &= e <= ge.BWD_TOL * max(1e-30, b.abs().max().item())
         worst = max(worst, e)
-    ms = median_ms(lambda: ge.brick_encode_backward(tables, pos, g, cfg, levels, groups,
-                                                    dtype))
-    plain = median_ms(lambda: bg.paired_encode_backward_reference(tables, pos, g, cfg,
-                                                                  levels, groups, dtype))
-    emit("brick_encode_bwd", **shape, ms=ms, plain_ms=plain, mrows_per_s=_rate(rows, ms),
+    ms = graph_ms(lambda: ge.brick_encode_backward(tables, pos, g, cfg, levels, groups,
+                                                   dtype))
+    plain = graph_ms(lambda: bg.paired_encode_backward_reference(tables, pos, g, cfg,
+                                                                 levels, groups, dtype))
+    call = median_ms(lambda: ge.brick_encode_backward(tables, pos, g, cfg, levels, groups,
+                                                      dtype))
+    emit("brick_encode_bwd", **shape, ms=ms, call_ms=call, plain_ms=plain,
+         mrows_per_s=_rate(rows, ms),
          plain_mrows_per_s=_rate(rows, plain), max_abs_err=worst,
          rtol=ge.BWD_TOL, correct=ok)
 

@@ -2,8 +2,9 @@
 
 ``python -m myc_nerfs_tpu_torch.cli.run_net --config-file <cfg.py>
 --task train|test|render [--save_dir d] [--synthetic] [--steps N]
-[--device cuda]`` with the same python-module configs as the JAX package
-(jnerf tools/run_net.py).
+[--device cuda|cpu]`` with the same python-module configs as the JAX
+package (jnerf tools/run_net.py). It runs on the card unless ``--device
+cpu`` is given, and exits with an error where CUDA is not available.
 
 - ``--task train`` runs ``train_loop`` (the JAX run_net loop) to
   ``tot_train_steps`` (or ``--steps``) and saves ``model.ckpt`` in the JAX
@@ -42,7 +43,7 @@ from ..utils.metrics import psnr
 VAL_EVERY = 4096
 
 
-def build_trainer(cfg, generator: torch.Generator, device=None,
+def build_trainer(cfg, generator: torch.Generator, device="cuda",
                   camera_c2w=None, focal=None, image_wh=None):
     """Assemble the NGP pipeline from the config's ``type=`` keys through
     the registries (jnerf runner.py:16-60). Returns (trainer, train cfg)."""
@@ -270,12 +271,15 @@ def main(argv: Optional[list] = None):
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--steps", type=int, default=0,
                         help="override tot_train_steps")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda when available)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda; pass --device cpu "
+                             "to run on the CPU)")
     args = parser.parse_args(argv)
 
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: torch.cuda.is_available() is "
+                         "false; pass --device cpu to run on the CPU")
     cfg = load_config(args.config_file)
     if args.synthetic:
         cfg["synthetic"] = True

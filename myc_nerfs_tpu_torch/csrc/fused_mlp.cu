@@ -1,286 +1,711 @@
 // Fused bias-free MLP for Hopper (sm_90a): y = Wn(...relu(W1 relu(W0 x))...),
-// forward (this comment) and backward (further down).
+// forward and backward, in bf16 on the tensor cores and in f32 on the CUDA
+// cores.
 //
-// The forward replaces myc_nerfs_tpu/ops/pallas/fused_mlp.py::_fwd_kernel (the Pallas
-// TPU kernel reached through fused_mlp / _fused_mlp_fwd_impl). It computes the
-// same function: bias-free layers, ReLU between layers and none after the
-// last, f32 accumulation, and a cast back to the input dtype after every
-// layer (fused_mlp.py:40-43). Inputs and weights are f32 or bf16.
+// The forward replaces myc_nerfs_tpu/ops/pallas/fused_mlp.py::_fwd_kernel and
+// the backward replaces _bwd_kernel (the Pallas TPU kernels reached through
+// fused_mlp / _fused_mlp_fwd_impl / _fused_mlp_bwd). The function is the
+// Pallas one:
+//   forward   h = round(relu(h @ W_i)), f32 accumulation, no ReLU after the
+//             last layer, round = cast to the input dtype;
+//   backward  recompute the post-activations post[0] = x, post[i+1] as above,
+//             then from the top layer down with g in f32 (it arrives rounded):
+//               dW_i += post[i]^T g                  (g as it is, unrounded)
+//               g     = round(g) @ W_i^T, masked by post[i] > 0 for i > 0
+//             dx = round(g); each dW is cast to the weight dtype at the end.
+// ReLU is `v < 0 ? 0 : v`, which keeps a NaN (fmaxf would turn it into 0 and
+// hide a non-finite step from the trainer's skip).
 //
-// What bounds it: at the NGP widths (32->64->16 and 32->64->64->16) a row
-// costs about 2*(32*64 + 64*64 + 64*16) = 14k flops against 64-128 bytes of
-// input and output per row, so the kernel is bound by the bytes it moves in
-// and out, not by arithmetic, as long as no intermediate activation goes
-// back to device memory. The design keeps every intermediate on chip:
-//   - all layer weights are staged once per CTA into shared memory (f32);
-//   - a CTA walks tiles of kTileRows rows (grid-stride), holding the tile's
-//     activations in two ping-pong shared-memory buffers between layers;
-//   - only x is read from and y written to device memory; the ragged last
-//     tile is masked in the kernel, nothing is padded.
-// Each thread computes 4 adjacent output columns of one row with an FMA loop
-// over the layer's input width (float4 weight reads). Tensor cores (mma.sync,
-// wgmma) and TMA are left for later work.
+// What bounds it: at the NGP widths (32->64->16, 32->64->64->16) a row costs
+// 6-14 kflop against 96 bytes of x and y (bf16), so a kernel that keeps every
+// intermediate on chip is bound by those bytes: 7.5 us for 262144 rows on an
+// H100 (3.35 TB/s), against 1.6-3.8 us of bf16 tensor-core time (989
+// TFLOP/s). In f32 there are no tensor cores that keep f32 (TF32 keeps 10
+// mantissa bits), and 67 TFLOP/s of FMA bound it instead (24-160 us).
+//
+// bf16 design (mma.sync.m16n8k16 bf16 -> f32, ldmatrix):
+//   - each CTA stages all weights once in shared memory as bf16, [din][dout+8]
+//     per layer: the 8-element pad puts the 8 rows of every ldmatrix in
+//     distinct banks. The forward reads B = W with ldmatrix.trans, the
+//     backward's dgrad reads B = W^T from the same layout without .trans;
+//   - forward: each warp walks 32-row chunks (two 16-row strips, so every B
+//     fragment feeds two mma) of a persistent grid. x arrives by 16-byte
+//     cp.async into a warp-private double buffer (the next chunk loads while
+//     this one computes); the ragged last chunk is zero-filled, not padded.
+//     Activations stay in registers between layers: the f32 accumulators of
+//     two adjacent n8 tiles, after ReLU and packing to bf16x2, are exactly the
+//     A fragment of the next layer's k16 step, so no shared memory and no
+//     __syncthreads() lie between layers. y leaves through the warp's buffer
+//     as 16-byte stores, masked to the rows that exist;
+//   - backward: a CTA takes 128-row tiles (one 16-row strip per warp),
+//     recomputes the post-activations with the forward's mma chain and keeps
+//     them in shared memory as bf16 (they are the ReLU mask and the dW
+//     operand). dgrad round(g) @ W^T is an mma whose A fragments are g
+//     rounded to bf16 once per element. dW_i += post_i^T g contracts over
+//     rows: post and g are read with ldmatrix.trans. To keep g unrounded (as
+//     the Pallas kernel does) g is split into g_hi = bf16(g) and g_lo =
+//     bf16(g - g_hi), two mma into one f32 accumulator: the dW product keeps
+//     about 16 of g's 24 mantissa bits (post is bf16 by the function's
+//     definition);
+//   - dW is deterministic: each warp owns a fixed set of 16x8 dW tiles (at
+//     most 8, so 64 per CTA in one pass; a larger chain runs in passes) and
+//     accumulates them in registers over the CTA's row tiles in order. The
+//     CTA writes its partial to a [ctas, sum |W_i|] f32 workspace and a
+//     second kernel sums the partials in CTA order.
+//
+// f32 design (CUDA cores, register blocking): activations in shared memory,
+// stored k-major ([k][row]) so that a thread's 4 rows at one k are one
+// float4; each thread computes a 4 x 4 micro-tile, so one weight float4 and
+// one activation float4 feed 16 FMAs (the backward's dW and dgrad read
+// 4 float4 of each operand per 64 FMAs). The backward keeps each CTA's
+// partial dW in shared memory, reduced as in bf16.
+//
+// CTA counts (a persistent grid: SMs x resident CTAs) and the dynamic
+// shared-memory limit are worked out once per (widths, dtype, direction) by
+// fused_mlp_plan; the Python wrapper caches them.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC (see ops/cuda/fused_mlp.py). Plain C entry
-// point, loaded with ctypes.
+//             -Xcompiler -fPIC (see ops/cuda/_build.py). Plain C entry
+// points, loaded with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kMaxLayers = 8;
 constexpr int kMaxWidth = 64;
-constexpr int kTileRows = 64;
-constexpr int kThreads = 256;
-// activation row stride in floats: 16-byte aligned, and rows r and r+1 fall
-// in different shared-memory banks (68 mod 32 = 4)
-constexpr int kLd = kMaxWidth + 4;
+constexpr int kPad = 8;  // bf16 row pad (16 bytes)
 
 struct Net {
   const void* w[kMaxLayers];
   int width[kMaxLayers + 1];
-  int w_off[kMaxLayers];  // offset (floats) of layer i's weights in smem
   int n_layers;
-  int w_floats;
+  int dw_off[kMaxLayers];        // offset (floats) of dW_i in the concatenated dW,
+  int dw_floats;                 // and in f32 of W_i, unpadded, in shared memory
+  // bf16: staged weights [din][dout + kPad]
+  int w_off[kMaxLayers];         // element offset in shared memory
+  int w_elems;
+  int post_off[kMaxLayers];      // backward: post[i] tile [kBwdRows][din + kPad]
+  int post_elems;
+  int g_ld;                      // backward: g tiles [kBwdRows][g_ld]
+  int tile_off[kMaxLayers + 1];  // backward: first 16x8 dW tile of layer i
+  int io_ld;                     // forward: x/y chunk row stride
 };
 
-template <typename T>
-struct Io;
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p, long long i) { return p[i]; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
-};
+// ---------------------------------------------------------------------------
+// PTX wrappers
 
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
-    return __bfloat162float(p[i]);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) {
-    p[i] = __float2bfloat16(v);
-  }
-};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, Net net, long long m) {
-  extern __shared__ __align__(16) float smem[];
-  float* wsm = smem;
-  float* act0 = smem + net.w_floats;
-  float* act1 = act0 + kTileRows * kLd;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
 
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// two floats -> bf16x2 (round to nearest even); lo in the low half, as the
+// mma fragments hold the lower column there
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
+  return __bfloat1622float2(v);
+}
+
+// every layer's W [din][dout] (bf16, global) -> shared [din][dout + kPad],
+// 16 bytes at a time
+__device__ __forceinline__ void stage_weights_bf16(bf16* wsm, const Net& net) {
   for (int l = 0; l < net.n_layers; ++l) {
-    const T* w = static_cast<const T*>(net.w[l]);
-    const int n = net.width[l] * net.width[l + 1];
-    for (int i = tid; i < n; i += kThreads) wsm[net.w_off[l] + i] = Io<T>::load(w, i);
+    const bf16* w = static_cast<const bf16*>(net.w[l]);
+    const int dout = net.width[l + 1], c8 = dout / 8, ld = dout + kPad;
+    const int n = net.width[l] * c8;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int k = i / c8, c = i - k * c8;
+      *reinterpret_cast<uint4*>(wsm + net.w_off[l] + k * ld + 8 * c) =
+          *reinterpret_cast<const uint4*>(w + k * dout + 8 * c);
+    }
   }
+}
 
-  const int d_in = net.width[0];
-  const long long n_tiles = (m + kTileRows - 1) / kTileRows;
+// One layer of a 16-row strip per entry of `a` (S strips): acc[s] = a[s] @ W,
+// din / 16 k-steps and dout / 8 n8 tiles (both warp-uniform). B fragments for
+// two n8 tiles come from one ldmatrix.x4.trans of the staged [din][dout+8] W.
+template <int S>
+__device__ __forceinline__ void layer_mma(float (&acc)[S][8][4], const uint32_t (&a)[S][4][4],
+                                          const bf16* wl, int din, int dout, int lane) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+  const int ld = dout + kPad;
+  const int q = lane >> 3, r = lane & 7;
+  const uint32_t base = smem_addr(wl + ((q & 1) * 8 + r) * ld + (q >> 1) * 8);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (16 * ks >= din) break;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (16 * jp >= dout) break;
+      uint32_t b[4];
+      ldsm_x4_t(b, base + 2u * (16 * ks * ld + 16 * jp));
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        mma_bf16(acc[s][2 * jp], a[s][ks], b[0], b[1]);
+        mma_bf16(acc[s][2 * jp + 1], a[s][ks], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc (16 x dout, C fragments) -> round(relu(acc)) as the next layer's A
+// fragments: n8 tiles 2ks and 2ks+1 make k-step ks
+template <int S>
+__device__ __forceinline__ void relu_to_a(uint32_t (&a)[S][4][4], const float (&acc)[S][8][4],
+                                          int dout) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (16 * ks >= dout) break;
+      const float* lo = acc[s][2 * ks];
+      const float* hi = acc[s][2 * ks + 1];
+      a[s][ks][0] = pack_bf16(relu(lo[0]), relu(lo[1]));
+      a[s][ks][1] = pack_bf16(relu(lo[2]), relu(lo[3]));
+      a[s][ks][2] = pack_bf16(relu(hi[0]), relu(hi[1]));
+      a[s][ks][3] = pack_bf16(relu(hi[2]), relu(hi[3]));
+    }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward
+
+constexpr int kFwdWarps = 8;
+constexpr int kFwdStrips = 2;
+constexpr int kChunkRows = 16 * kFwdStrips;  // rows a warp takes at a time
+
+__host__ __device__ inline size_t fwd_bf16_smem(const Net& net) {
+  return (size_t(net.w_elems) + size_t(kFwdWarps) * 2 * kChunkRows * net.io_ld) * sizeof(bf16);
+}
+
+__global__ void __launch_bounds__(kFwdWarps * 32, 2)
+fused_mlp_fwd_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, Net net,
+                          long long m) {
+  extern __shared__ __align__(16) bf16 smem[];
+  bf16* wsm = smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* io = smem + net.w_elems + warp * 2 * kChunkRows * net.io_ld;
+  const int n = net.n_layers, d_in = net.width[0], d_out = net.width[n];
+  const int io_ld = net.io_ld;
+
+  stage_weights_bf16(wsm, net);
+  __syncthreads();
+
+  const long long n_chunks = (m + kChunkRows - 1) / kChunkRows;
+  const long long stride = (long long)gridDim.x * kFwdWarps;
+  long long chunk = (long long)blockIdx.x * kFwdWarps + warp;
+
+  // cp.async of a chunk's rows of x into buffer b; rows past m are zeroed
+  auto load = [&](long long c, int b) {
+    const int c8 = d_in / 8;
+    bf16* dst = io + b * kChunkRows * io_ld;
+    for (int i = lane; i < kChunkRows * c8; i += 32) {
+      const int r = i / c8, k = i - r * c8;
+      const long long row = c * kChunkRows + r;
+      const bool in = row < m;
+      cp_async16(smem_addr(dst + r * io_ld + 8 * k), x + (in ? row : 0) * d_in + 8 * k,
+                 in ? 16 : 0);
+    }
+  };
+
+  if (chunk < n_chunks) load(chunk, 0);
+  cp_async_commit();
+  int buf = 0;
+  for (; chunk < n_chunks; chunk += stride, buf ^= 1) {
+    if (chunk + stride < n_chunks) load(chunk + stride, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncwarp();
+    bf16* tile = io + buf * kChunkRows * io_ld;
+
+    uint32_t a[kFwdStrips][4][4];
+#pragma unroll
+    for (int s = 0; s < kFwdStrips; ++s) {
+      const uint32_t base =
+          smem_addr(tile + (16 * s + (lane & 15)) * io_ld + (lane >> 4) * 8);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        if (16 * ks < d_in) ldsm_x4(a[s][ks], base + 2u * 16 * ks);
+    }
+    __syncwarp();  // x is in registers: the buffer takes y next
+
+    float acc[kFwdStrips][8][4];
+    for (int l = 0; l < n; ++l) {
+      const int dout = net.width[l + 1];
+      layer_mma<kFwdStrips>(acc, a, wsm + net.w_off[l], net.width[l], dout, lane);
+      if (l + 1 < n) relu_to_a<kFwdStrips>(a, acc, dout);
+    }
+
+    // y: fragments -> the warp's buffer -> 16-byte stores of the rows < m
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int s = 0; s < kFwdStrips; ++s)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= d_out) break;
+        uint32_t* p0 = reinterpret_cast<uint32_t*>(tile + (16 * s + g) * io_ld + 8 * j + 2 * t);
+        uint32_t* p1 = reinterpret_cast<uint32_t*>(tile + (16 * s + g + 8) * io_ld + 8 * j + 2 * t);
+        *p0 = pack_bf16(acc[s][j][0], acc[s][j][1]);
+        *p1 = pack_bf16(acc[s][j][2], acc[s][j][3]);
+      }
+    __syncwarp();
+    const int c8 = d_out / 8;
+    for (int i = lane; i < kChunkRows * c8; i += 32) {
+      const int r = i / c8, k = i - r * c8;
+      const long long row = chunk * kChunkRows + r;
+      if (row < m)
+        *reinterpret_cast<uint4*>(y + row * d_out + 8 * k) =
+            *reinterpret_cast<const uint4*>(tile + r * io_ld + 8 * k);
+    }
+    __syncwarp();  // the buffer is free for the chunk after next
+  }
+  cp_async_wait_0();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdRows = 16 * kBwdWarps;   // rows of a CTA tile: a strip per warp
+constexpr int kDwTilesPerWarp = 8;         // 16x8 dW tiles a warp keeps in registers
+constexpr int kDwTilesPerPass = kDwTilesPerWarp * kBwdWarps;
+
+__host__ __device__ inline size_t bwd_bf16_smem(const Net& net) {
+  return (size_t(net.w_elems) + net.post_elems + 2 * size_t(kBwdRows) * net.g_ld) *
+         sizeof(bf16);
+}
+
+// rows [0, kBwdRows) of a [m, d] bf16 matrix from row0 on -> shared [.][ld];
+// rows past m are zeroed
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, int ld, const bf16* src, int d,
+                                               long long row0, long long m) {
+  const int c8 = d / 8;
+  for (int i = threadIdx.x; i < kBwdRows * c8; i += blockDim.x) {
+    const int r = i / c8, k = i - r * c8;
+    const long long row = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < m) v = *reinterpret_cast<const uint4*>(src + row * d + 8 * k);
+    *reinterpret_cast<uint4*>(dst + r * ld + 8 * k) = v;
+  }
+}
+
+// Pass `tile_begin / kDwTilesPerPass` of the backward: dW tiles
+// [tile_begin, tile_begin + kDwTilesPerPass) go to `partial`; dx (may be null)
+// is written by the first pass only.
+__global__ void __launch_bounds__(kBwdWarps * 32, 2)
+fused_mlp_bwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gy,
+                          bf16* __restrict__ dx, float* __restrict__ partial, Net net,
+                          long long m, int tile_begin) {
+  extern __shared__ __align__(16) bf16 smem[];
+  bf16* wsm = smem;
+  bf16* post = smem + net.w_elems;
+  bf16* ghi = post + net.post_elems;
+  bf16* glo = ghi + kBwdRows * net.g_ld;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const int n = net.n_layers, d_in = net.width[0], d_out = net.width[n];
+  const int g_ld = net.g_ld;
+  const int srow = 16 * warp;  // the warp's strip in the tile
+
+  stage_weights_bf16(wsm, net);
+
+  float dacc[kDwTilesPerWarp][4];
+#pragma unroll
+  for (int s = 0; s < kDwTilesPerWarp; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dacc[s][e] = 0.f;
+
+  const long long n_tiles = (m + kBwdRows - 1) / kBwdRows;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long row0 = tile * kTileRows;
-    for (int i = tid; i < kTileRows * d_in; i += kThreads) {
-      const int r = i / d_in;
-      const int k = i - r * d_in;
-      const long long row = row0 + r;
-      act0[r * kLd + k] = row < m ? Io<T>::load(x, row * d_in + k) : 0.f;
+    const long long row0 = tile * kBwdRows;
+    load_tile_bf16(post + net.post_off[0], d_in + kPad, x, d_in, row0, m);
+    load_tile_bf16(ghi, g_ld, gy, d_out, row0, m);
+    __syncthreads();
+
+    // recompute post[1..n-1] for the warp's strip with the forward's chain
+    {
+      uint32_t a[1][4][4];
+      float acc[1][8][4];
+      const int ld0 = d_in + kPad;
+      const uint32_t base = smem_addr(post + net.post_off[0] + (srow + (lane & 15)) * ld0 +
+                                      (lane >> 4) * 8);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        if (16 * ks < d_in) ldsm_x4(a[0][ks], base + 2u * 16 * ks);
+      for (int l = 0; l + 1 < n; ++l) {
+        const int dout = net.width[l + 1];
+        layer_mma<1>(acc, a, wsm + net.w_off[l], net.width[l], dout, lane);
+        relu_to_a<1>(a, acc, dout);
+        bf16* p = post + net.post_off[l + 1];
+        const int ld = dout + kPad;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (16 * ks >= dout) break;
+          const int c = 16 * ks + 2 * t;
+          *reinterpret_cast<uint32_t*>(p + (srow + g) * ld + c) = a[0][ks][0];
+          *reinterpret_cast<uint32_t*>(p + (srow + g + 8) * ld + c) = a[0][ks][1];
+          *reinterpret_cast<uint32_t*>(p + (srow + g) * ld + c + 8) = a[0][ks][2];
+          *reinterpret_cast<uint32_t*>(p + (srow + g + 8) * ld + c + 8) = a[0][ks][3];
+        }
+      }
     }
     __syncthreads();
 
+    for (int l = n - 1; l >= 0; --l) {
+      const int din = net.width[l], dout = net.width[l + 1];
+      const bf16* pl = post + net.post_off[l];
+      const int pld = din + kPad;
+      const bool split = l + 1 < n;  // the top layer's g arrives rounded: g_lo = 0
+
+      // dW_l += post_l^T g over the tile's rows, for the warp's tiles, one
+      // tile's row steps after another (interleaving the tiles per row step
+      // ran slower on an H100 80GB HBM3 at 700 W)
+      const int nt = dout / 8;
+#pragma unroll
+      for (int s = 0; s < kDwTilesPerWarp; ++s) {
+        const int tl = tile_begin + warp + kBwdWarps * s;
+        if (tl < net.tile_off[l] || tl >= net.tile_off[l + 1]) continue;
+        const int lt = tl - net.tile_off[l];
+        const int mi = lt / nt, nj = lt - mi * nt;
+        const uint32_t a_base =
+            smem_addr(pl + ((q >> 1) * 8 + r8) * pld + 16 * mi + (q & 1) * 8);
+        const int b_off = ((q & 1) * 8 + r8) * g_ld + 8 * nj;
+        const uint32_t bh_base = smem_addr(ghi + b_off);
+        const uint32_t bl_base = smem_addr(glo + b_off);
+#pragma unroll 2
+        for (int kr = 0; kr < kBwdRows / 16; ++kr) {
+          uint32_t a[4], b0, b1;
+          ldsm_x4_t(a, a_base + 2u * 16 * kr * pld);
+          ldsm_x2_t(b0, b1, bh_base + 2u * 16 * kr * g_ld);
+          mma_bf16(dacc[s], a, b0, b1);
+          if (split) {
+            ldsm_x2_t(b0, b1, bl_base + 2u * 16 * kr * g_ld);
+            mma_bf16(dacc[s], a, b0, b1);
+          }
+        }
+      }
+
+      // dgrad for the warp's strip: round(g) @ W_l^T, masked by post_l > 0
+      float acc[8][4];
+      const bool dgrad = l > 0 || dx != nullptr;
+      if (dgrad) {
+        uint32_t a[4][4];
+        const uint32_t gbase =
+            smem_addr(ghi + (srow + (lane & 15)) * g_ld + (lane >> 4) * 8);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          if (16 * ks < dout) ldsm_x4(a[ks], gbase + 2u * 16 * ks);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        const int wld = dout + kPad;
+        const uint32_t wbase = smem_addr(wsm + net.w_off[l] + ((q >> 1) * 8 + r8) * wld +
+                                         (q & 1) * 8);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (16 * ks >= dout) break;
+#pragma unroll
+          for (int jp = 0; jp < 4; ++jp) {
+            if (16 * jp >= din) break;
+            uint32_t b[4];
+            ldsm_x4(b, wbase + 2u * (16 * jp * wld + 16 * ks));
+            mma_bf16(acc[2 * jp], a[ks], b[0], b[1]);
+            mma_bf16(acc[2 * jp + 1], a[ks], b[2], b[3]);
+          }
+        }
+        if (l > 0) {
+          // g * (post > 0): a product, so a non-finite g stays non-finite
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (8 * j >= din) break;
+            const int c = 8 * j + 2 * t;
+            const float2 p0 = unpack_bf16(
+                *reinterpret_cast<const uint32_t*>(pl + (srow + g) * pld + c));
+            const float2 p1 = unpack_bf16(
+                *reinterpret_cast<const uint32_t*>(pl + (srow + g + 8) * pld + c));
+            acc[j][0] *= p0.x > 0.f ? 1.f : 0.f;
+            acc[j][1] *= p0.y > 0.f ? 1.f : 0.f;
+            acc[j][2] *= p1.x > 0.f ? 1.f : 0.f;
+            acc[j][3] *= p1.y > 0.f ? 1.f : 0.f;
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with this layer's g
+
+      if (l > 0) {
+        // the next g, split into its bf16 head and the bf16 rounding of the rest
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (8 * j >= din) break;
+          const int c = 8 * j + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+            const uint32_t hi = pack_bf16(v0, v1);
+            const float2 hf = unpack_bf16(hi);
+            // a non-finite head (NaN, inf, overflow) carries the value alone
+            const float l0 = fabsf(hf.x) <= 3.0e38f ? v0 - hf.x : 0.f;
+            const float l1 = fabsf(hf.y) <= 3.0e38f ? v1 - hf.y : 0.f;
+            const int row = srow + g + 8 * h;
+            *reinterpret_cast<uint32_t*>(ghi + row * g_ld + c) = hi;
+            *reinterpret_cast<uint32_t*>(glo + row * g_ld + c) = pack_bf16(l0, l1);
+          }
+        }
+        __syncthreads();
+      } else if (dx != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (8 * j >= din) break;
+          const int c = 8 * j + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long row = row0 + srow + g + 8 * h;
+            if (row < m)
+              *reinterpret_cast<uint32_t*>(dx + row * d_in + c) =
+                  pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+
+  // the CTA's partial dW of this pass's tiles
+  float* out = partial + (long long)blockIdx.x * net.dw_floats;
+#pragma unroll
+  for (int s = 0; s < kDwTilesPerWarp; ++s) {
+    const int tl = tile_begin + warp + kBwdWarps * s;
+    if (tl >= net.tile_off[n]) continue;
+    int l = 0;
+    while (tl >= net.tile_off[l + 1]) ++l;
+    const int dout = net.width[l + 1], nt = dout / 8;
+    const int lt = tl - net.tile_off[l];
+    const int mi = lt / nt, nj = lt - mi * nt;
+    float* d = out + net.dw_off[l] + (16 * mi + g) * dout + 8 * nj + 2 * t;
+    *reinterpret_cast<float2*>(d) = make_float2(dacc[s][0], dacc[s][1]);
+    *reinterpret_cast<float2*>(d + 8 * dout) = make_float2(dacc[s][2], dacc[s][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 forward and backward (CUDA cores, 4x4 register micro-tiles)
+
+constexpr int kF32Threads = 256;
+constexpr int kF32FwdRows = 128;
+constexpr int kF32BwdRows = 64;
+
+__host__ __device__ inline int f32_ld(int rows) { return rows + 4; }
+
+__host__ __device__ inline size_t fwd_f32_smem(const Net& net) {
+  return (size_t(net.dw_floats) + 2 * size_t(kMaxWidth) * f32_ld(kF32FwdRows)) * sizeof(float);
+}
+
+__host__ __device__ inline size_t bwd_f32_smem(const Net& net) {
+  size_t post = 0;
+  for (int l = 0; l < net.n_layers; ++l) post += size_t(net.width[l]) * f32_ld(kF32BwdRows);
+  return (2 * size_t(net.dw_floats) + post + 2 * size_t(kMaxWidth) * f32_ld(kF32BwdRows)) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void stage_weights_f32(float* wsm, const Net& net) {
+  for (int l = 0; l < net.n_layers; ++l) {
+    const float4* w = static_cast<const float4*>(net.w[l]);
+    const int n4 = net.width[l] * net.width[l + 1] / 4;
+    float4* dst = reinterpret_cast<float4*>(wsm + net.dw_off[l]);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = w[i];
+  }
+}
+
+// rows [row0, row0 + rows) of a [m, d] f32 matrix -> shared k-major [d][ld];
+// rows past m are zeroed
+__device__ __forceinline__ void load_tile_f32_t(float* dst, int ld, const float* src, int d,
+                                                int rows, long long row0, long long m) {
+  const int d4 = d / 4;
+  for (int i = threadIdx.x; i < rows * d4; i += blockDim.x) {
+    const int r = i / d4, k = i - r * d4;
+    const long long row = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < m) v = *reinterpret_cast<const float4*>(src + row * d + 4 * k);
+    dst[(4 * k + 0) * ld + r] = v.x;
+    dst[(4 * k + 1) * ld + r] = v.y;
+    dst[(4 * k + 2) * ld + r] = v.z;
+    dst[(4 * k + 3) * ld + r] = v.w;
+  }
+}
+
+// o[i][j] = sum_k act[k][r + i] * w[k][c + j], k ascending
+__device__ __forceinline__ void micro_fwd(float (&o)[4][4], const float* act, int ld,
+                                          const float* w, int dout, int din, int r, int c) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < din; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(act + k * ld + r);
+    const float4 b = *reinterpret_cast<const float4*>(w + k * dout + c);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][j] = fmaf(av[i], bv[j], o[i][j]);
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+fused_mlp_fwd_f32_kernel(const float* __restrict__ x, float* __restrict__ y, Net net,
+                         long long m) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int kLd = kF32FwdRows + 4;
+  constexpr int kGroups = kF32FwdRows / 4;
+  float* wsm = fsm;
+  float* act0 = fsm + net.dw_floats;
+  float* act1 = act0 + kMaxWidth * kLd;
+  const int n = net.n_layers, d_in = net.width[0], d_out = net.width[n];
+
+  stage_weights_f32(wsm, net);
+
+  const long long n_tiles = (m + kF32FwdRows - 1) / kF32FwdRows;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = tile * kF32FwdRows;
+    __syncthreads();  // the previous tile's readers of act0 are done
+    load_tile_f32_t(act0, kLd, x, d_in, kF32FwdRows, row0, m);
+    __syncthreads();
     float* hin = act0;
     float* hout = act1;
-    for (int l = 0; l < net.n_layers; ++l) {
-      const int din = net.width[l];
-      const int dout = net.width[l + 1];
-      const int groups = dout / 4;
-      const bool last = l == net.n_layers - 1;
-      const float* wl = wsm + net.w_off[l];
-      for (int i = tid; i < kTileRows * groups; i += kThreads) {
-        const int r = i / groups;
-        const int c = (i - r * groups) * 4;
-        const float* hr = hin + r * kLd;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < din; ++k) {
-          const float a = hr[k];
-          const float4 wv = *reinterpret_cast<const float4*>(wl + k * dout + c);
-          a0 = fmaf(a, wv.x, a0);
-          a1 = fmaf(a, wv.y, a1);
-          a2 = fmaf(a, wv.z, a2);
-          a3 = fmaf(a, wv.w, a3);
-        }
-        float v[4] = {a0, a1, a2, a3};
+    for (int l = 0; l < n; ++l) {
+      const int din = net.width[l], dout = net.width[l + 1];
+      const float* wl = wsm + net.dw_off[l];
+      const bool last = l + 1 == n;
+      for (int it = threadIdx.x; it < kGroups * (dout / 4); it += kF32Threads) {
+        const int r = 4 * (it % kGroups), c = 4 * (it / kGroups);
+        float o[4][4];
+        micro_fwd(o, hin, kLd, wl, dout, din, r, c);
         if (!last) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            // max(v, 0) that keeps NaN, like jnp.maximum / torch.relu
-            const float h = v[j] < 0.f ? 0.f : v[j];
-            hout[r * kLd + c + j] = Io<T>::round(h);
-          }
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<float4*>(hout + (c + j) * kLd + r) =
+                make_float4(relu(o[0][j]), relu(o[1][j]), relu(o[2][j]), relu(o[3][j]));
         } else {
-          const long long row = row0 + r;
-          if (row < m) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) Io<T>::store(y, row * dout + c + j, v[j]);
+          for (int i = 0; i < 4; ++i) {
+            const long long row = row0 + r + i;
+            if (row < m)
+              *reinterpret_cast<float4*>(y + row * d_out + c) =
+                  make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
           }
         }
       }
       __syncthreads();
-      float* t = hin;
+      float* tmp = hin;
       hin = hout;
-      hout = t;
+      hout = tmp;
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, void* y, const Net& net, long long m, cudaStream_t stream) {
-  const size_t smem = (size_t(net.w_floats) + 2 * kTileRows * kLd) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return int(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel<T>,
-                                                           kThreads, smem)) != cudaSuccess)
-    return int(err);
-  const long long n_tiles = (m + kTileRows - 1) / kTileRows;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > n_tiles) grid = n_tiles;
-  fused_mlp_fwd_kernel<T><<<unsigned(grid), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), net, m);
-  return int(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Backward. Replaces myc_nerfs_tpu/ops/pallas/fused_mlp.py::_bwd_kernel
-// (reached through _fused_mlp_bwd). Per 64-row tile it recomputes the
-// forward's post-activations post[0] = x, post[i+1] = round(relu(post[i] W_i))
-// with the forward kernel's exact FMA order, then walks the layers from the
-// last to the first with g (f32; it arrives rounded to x's dtype):
-//   dW_i += post[i]^T g                       (f32, g as it is)
-//   g     = round(g) W_i^T, masked by post[i] > 0 for i > 0
-// and stores dx = round(g). Each dW is cast to the weights' dtype at the end.
-//
-// What bounds it: three passes of the layer chain per row (recompute, dW,
-// dgrad), 3 x 7168 FMAs per row for the rgb MLP, against 64-128 bytes of x,
-// g and dx per row: arithmetic, fed from shared memory. The design keeps
-// every intermediate on chip and makes dW deterministic:
-//   - a CTA stages the weights (rows padded to dout+4 floats, so the dgrad's
-//     row-wise float4 reads of W fall in distinct banks), keeps the tile's
-//     post-activations of every layer and two ping-pong g buffers in shared
-//     memory, and accumulates its own partial dW in shared memory while it
-//     walks 64-row tiles grid-stride;
-//   - CTAs run in no order, so instead of the TPU's sequential-grid
-//     accumulator each CTA writes its partial dW to a [n_ctas, sum |W_i|]
-//     f32 workspace, and a second kernel sums the partials in CTA order:
-//     the result is the same from run to run.
-// dW's thread owns a fixed (k, 4 columns) block of W_i, so its shared-memory
-// accumulation needs no atomics. Tensor cores and TMA are left for later.
-
-// 512 threads: with one CTA per SM (the rgb MLP's 144 KB of shared memory)
-// 16 warps hide the shared-memory latency better than 8 (rgb bf16 1.38 vs
-// 1.62 ms on an H100 at 262144 rows)
-constexpr int kBwdThreads = 512;
-
-struct BwdNet {
-  const void* w[kMaxLayers];
-  int width[kMaxLayers + 1];
-  int w_off[kMaxLayers];   // offset (floats) of layer i's padded weights in smem
-  int w_ld[kMaxLayers];    // padded row stride of layer i's weights
-  int dw_off[kMaxLayers];  // offset (floats) of layer i's dW (unpadded)
-  int n_layers;
-  int w_floats;
-  int dw_floats;
-};
-
-__host__ __device__ inline size_t bwd_smem_floats(int w_floats, int dw_floats, int n_layers) {
-  return size_t(w_floats) + dw_floats + size_t(n_layers + 2) * kTileRows * kLd;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, T* __restrict__ dx,
-                     float* __restrict__ partial, BwdNet net, long long m) {
-  extern __shared__ __align__(16) float smem[];
-  float* wsm = smem;
-  float* dwsm = wsm + net.w_floats;
-  float* post = dwsm + net.dw_floats;                   // n_layers tiles
-  float* gbuf0 = post + net.n_layers * kTileRows * kLd;
-  float* gbuf1 = gbuf0 + kTileRows * kLd;
-  const int tid = threadIdx.x;
-  const int n = net.n_layers;
-
+__global__ void __launch_bounds__(kF32Threads)
+fused_mlp_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ gy,
+                         float* __restrict__ dx, float* __restrict__ partial, Net net,
+                         long long m) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int kLd = kF32BwdRows + 4;
+  constexpr int kGroups = kF32BwdRows / 4;
+  const int n = net.n_layers, d_in = net.width[0], d_out = net.width[n];
+  float* wsm = fsm;
+  float* dwsm = wsm + net.dw_floats;
+  float* post = dwsm + net.dw_floats;  // post[l]: [width[l]][kLd]
+  int post_off[kMaxLayers];
+  int off = 0;
   for (int l = 0; l < n; ++l) {
-    const T* w = static_cast<const T*>(net.w[l]);
-    const int din = net.width[l], dout = net.width[l + 1], ld = net.w_ld[l];
-    for (int i = tid; i < din * dout; i += kBwdThreads) {
-      const int k = i / dout;
-      wsm[net.w_off[l] + k * ld + (i - k * dout)] = Io<T>::load(w, i);
-    }
+    post_off[l] = off;
+    off += net.width[l] * kLd;
   }
-  for (int i = tid; i < net.dw_floats; i += kBwdThreads) dwsm[i] = 0.f;
+  float* gbuf0 = post + off;
+  float* gbuf1 = gbuf0 + kMaxWidth * kLd;
 
-  const int d_in = net.width[0];
-  const int d_out = net.width[n];
-  const long long n_tiles = (m + kTileRows - 1) / kTileRows;
+  stage_weights_f32(wsm, net);
+  for (int i = threadIdx.x; i < net.dw_floats; i += kF32Threads) dwsm[i] = 0.f;
+
+  const long long n_tiles = (m + kF32BwdRows - 1) / kF32BwdRows;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long row0 = tile * kTileRows;
-    for (int i = tid; i < kTileRows * d_in; i += kBwdThreads) {
-      const int r = i / d_in;
-      const int k = i - r * d_in;
-      const long long row = row0 + r;
-      post[r * kLd + k] = row < m ? Io<T>::load(x, row * d_in + k) : 0.f;
-    }
-    for (int i = tid; i < kTileRows * d_out; i += kBwdThreads) {
-      const int r = i / d_out;
-      const int c = i - r * d_out;
-      const long long row = row0 + r;
-      gbuf0[r * kLd + c] = row < m ? Io<T>::load(gy, row * d_out + c) : 0.f;
-    }
+    const long long row0 = tile * kF32BwdRows;
+    __syncthreads();
+    load_tile_f32_t(post + post_off[0], kLd, x, d_in, kF32BwdRows, row0, m);
+    load_tile_f32_t(gbuf0, kLd, gy, d_out, kF32BwdRows, row0, m);
     __syncthreads();
 
-    // recompute post[1..n-1], as the forward kernel computes them
     for (int l = 0; l + 1 < n; ++l) {
-      const int din = net.width[l];
-      const int dout = net.width[l + 1];
-      const int groups = dout / 4;
-      const int ld = net.w_ld[l];
-      const float* wl = wsm + net.w_off[l];
-      const float* hin = post + l * kTileRows * kLd;
-      float* hout = post + (l + 1) * kTileRows * kLd;
-      for (int i = tid; i < kTileRows * groups; i += kBwdThreads) {
-        const int r = i / groups;
-        const int c = (i - r * groups) * 4;
-        const float* hr = hin + r * kLd;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < din; ++k) {
-          const float a = hr[k];
-          const float4 wv = *reinterpret_cast<const float4*>(wl + k * ld + c);
-          a0 = fmaf(a, wv.x, a0);
-          a1 = fmaf(a, wv.y, a1);
-          a2 = fmaf(a, wv.z, a2);
-          a3 = fmaf(a, wv.w, a3);
-        }
-        float v[4] = {a0, a1, a2, a3};
+      const int din = net.width[l], dout = net.width[l + 1];
+      const float* hin = post + post_off[l];
+      float* hout = post + post_off[l + 1];
+      for (int it = threadIdx.x; it < kGroups * (dout / 4); it += kF32Threads) {
+        const int r = 4 * (it % kGroups), c = 4 * (it / kGroups);
+        float o[4][4];
+        micro_fwd(o, hin, kLd, wsm + net.dw_off[l], dout, din, r, c);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float h = v[j] < 0.f ? 0.f : v[j];
-          hout[r * kLd + c + j] = Io<T>::round(h);
-        }
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(hout + (c + j) * kLd + r) =
+              make_float4(relu(o[0][j]), relu(o[1][j]), relu(o[2][j]), relu(o[3][j]));
       }
       __syncthreads();
     }
@@ -288,205 +713,276 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, T* __res
     float* gin = gbuf0;
     float* gout = gbuf1;
     for (int l = n - 1; l >= 0; --l) {
-      const int din = net.width[l];
-      const int dout = net.width[l + 1];
-      const int ld = net.w_ld[l];
-      const float* wl = wsm + net.w_off[l];
-      const float* hl = post + l * kTileRows * kLd;
-      // dW_l += post[l]^T g: a thread owns W_l[k, c..c+3]
-      const int groups = dout / 4;
+      const int din = net.width[l], dout = net.width[l + 1];
+      const float* pl = post + post_off[l];
+      const float* wl = wsm + net.dw_off[l];
+      // dW_l[k][c] += sum_r post_l[k][r] g[c][r]: a thread owns 4 x 4 of W_l
       float* dwl = dwsm + net.dw_off[l];
-      for (int i = tid; i < din * groups; i += kBwdThreads) {
-        const int k = i / groups;
-        const int c = (i - k * groups) * 4;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 8
-        for (int r = 0; r < kTileRows; ++r) {
-          const float h = hl[r * kLd + k];
-          const float4 gv = *reinterpret_cast<const float4*>(gin + r * kLd + c);
-          a0 = fmaf(h, gv.x, a0);
-          a1 = fmaf(h, gv.y, a1);
-          a2 = fmaf(h, gv.z, a2);
-          a3 = fmaf(h, gv.w, a3);
+      const int kq = din / 4;
+      for (int it = threadIdx.x; it < kq * (dout / 4); it += kF32Threads) {
+        const int k = 4 * (it % kq), c = 4 * (it / kq);
+        float o[4][4] = {};
+#pragma unroll 2
+        for (int r = 0; r < kF32BwdRows; r += 4) {
+          float4 p[4], gv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            p[i] = *reinterpret_cast<const float4*>(pl + (k + i) * kLd + r);
+            gv[i] = *reinterpret_cast<const float4*>(gin + (c + i) * kLd + r);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              o[i][j] = fmaf(p[i].x, gv[j].x, o[i][j]);
+              o[i][j] = fmaf(p[i].y, gv[j].y, o[i][j]);
+              o[i][j] = fmaf(p[i].z, gv[j].z, o[i][j]);
+              o[i][j] = fmaf(p[i].w, gv[j].w, o[i][j]);
+            }
         }
-        float* d = dwl + k * dout + c;
-        d[0] += a0;
-        d[1] += a1;
-        d[2] += a2;
-        d[3] += a3;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float4* d = reinterpret_cast<float4*>(dwl + (k + i) * dout + c);
+          float4 v = *d;
+          v.x += o[i][0];
+          v.y += o[i][1];
+          v.z += o[i][2];
+          v.w += o[i][3];
+          *d = v;
+        }
       }
-      // g <- round(g) W_l^T (masked by post[l] > 0 below the top layer); the
-      // layer-0 product is dx, skipped when dx is not wanted
+      // g' [r][k] = sum_c g[c][r] W_l[k][c], masked by post_l > 0 below the top
       if (l > 0 || dx != nullptr) {
-        for (int i = tid; i < kTileRows * din; i += kBwdThreads) {
-          const int r = i / din;
-          const int k = i - r * din;
-          const float* gr = gin + r * kLd;
-          const float* wr = wl + k * ld;
-          float a = 0.f;
-#pragma unroll 4
+        for (int it = threadIdx.x; it < kGroups * kq; it += kF32Threads) {
+          const int r = 4 * (it % kGroups), k = 4 * (it / kGroups);
+          float o[4][4] = {};
+#pragma unroll 2
           for (int c = 0; c < dout; c += 4) {
-            const float4 gv = *reinterpret_cast<const float4*>(gr + c);
-            const float4 wv = *reinterpret_cast<const float4*>(wr + c);
-            a = fmaf(Io<T>::round(gv.x), wv.x, a);
-            a = fmaf(Io<T>::round(gv.y), wv.y, a);
-            a = fmaf(Io<T>::round(gv.z), wv.z, a);
-            a = fmaf(Io<T>::round(gv.w), wv.w, a);
+            float4 gv[4], w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              gv[i] = *reinterpret_cast<const float4*>(gin + (c + i) * kLd + r);
+              w[i] = *reinterpret_cast<const float4*>(wl + (k + i) * dout + c);
+            }
+            const float gr[4][4] = {{gv[0].x, gv[0].y, gv[0].z, gv[0].w},
+                                    {gv[1].x, gv[1].y, gv[1].z, gv[1].w},
+                                    {gv[2].x, gv[2].y, gv[2].z, gv[2].w},
+                                    {gv[3].x, gv[3].y, gv[3].z, gv[3].w}};
+            const float wr[4][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
+                                    {w[1].x, w[1].y, w[1].z, w[1].w},
+                                    {w[2].x, w[2].y, w[2].z, w[2].w},
+                                    {w[3].x, w[3].y, w[3].z, w[3].w}};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int u = 0; u < 4; ++u) o[i][j] = fmaf(gr[u][i], wr[j][u], o[i][j]);
           }
           if (l > 0) {
-            gout[r * kLd + k] = a * (hl[r * kLd + k] > 0.f ? 1.f : 0.f);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 pv = *reinterpret_cast<const float4*>(pl + (k + j) * kLd + r);
+              *reinterpret_cast<float4*>(gout + (k + j) * kLd + r) =
+                  make_float4(o[0][j] * (pv.x > 0.f ? 1.f : 0.f),
+                              o[1][j] * (pv.y > 0.f ? 1.f : 0.f),
+                              o[2][j] * (pv.z > 0.f ? 1.f : 0.f),
+                              o[3][j] * (pv.w > 0.f ? 1.f : 0.f));
+            }
           } else {
-            const long long row = row0 + r;
-            if (row < m) Io<T>::store(dx, row * d_in + k, a);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const long long row = row0 + r + i;
+              if (row < m)
+                *reinterpret_cast<float4*>(dx + row * d_in + k) =
+                    make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+            }
           }
         }
       }
       __syncthreads();
-      float* t = gin;
+      float* tmp = gin;
       gin = gout;
-      gout = t;
+      gout = tmp;
     }
   }
 
   __syncthreads();
   float* out = partial + (long long)blockIdx.x * net.dw_floats;
-  for (int i = tid; i < net.dw_floats; i += kBwdThreads) out[i] = dwsm[i];
+  for (int i = threadIdx.x; i < net.dw_floats; i += kF32Threads) out[i] = dwsm[i];
 }
 
-// dw[j] = sum over CTAs b, in order, of partial[b, j], cast to T
+__device__ __forceinline__ void store_dw(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_dw(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// dw[j] = the sum over CTAs b of partial[b, j], cast to T, in a fixed order:
+// thread row y sums b = y, y + 8, ... in turn, then row 0 adds the 8 sums in
+// turn, so the result is the same from run to run
+constexpr int kReduceCols = 32, kReduceRows = 8;
+
 template <typename T>
-__global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts,
-                                            int n_cols, T* __restrict__ dw) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_cols) return;
+__global__ void __launch_bounds__(kReduceCols * kReduceRows)
+fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int n_cols,
+                            T* __restrict__ dw) {
+  __shared__ float part[kReduceRows][kReduceCols];
+  const int j = blockIdx.x * kReduceCols + threadIdx.x;
   float s = 0.f;
-  for (int b = 0; b < n_parts; ++b) s += partial[(long long)b * n_cols + j];
-  Io<T>::store(dw, j, s);
+  if (j < n_cols)
+    for (int b = threadIdx.y; b < n_parts; b += kReduceRows)
+      s += partial[(long long)b * n_cols + j];
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < n_cols) {
+    float t = 0.f;
+    for (int y = 0; y < kReduceRows; ++y) t += part[y][threadIdx.x];
+    store_dw(dw + j, t);
+  }
 }
 
-template <typename T>
-int bwd_ctas(const BwdNet& net, long long m, int* ctas) {
-  const size_t smem = bwd_smem_floats(net.w_floats, net.dw_floats, net.n_layers) * sizeof(float);
+// ---------------------------------------------------------------------------
+// host side
+
+int make_net(const void* const* weights, const int* widths, int n_layers, Net* net) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return -1;
+  int max_g = 0;
+  for (int i = 0; i <= n_layers; ++i) {
+    if (widths[i] <= 0 || widths[i] % 16 != 0 || widths[i] > kMaxWidth) return -1;
+    net->width[i] = widths[i];
+    if (i > 0 && widths[i] > max_g) max_g = widths[i];
+  }
+  int w_off = 0, dw_off = 0, post = 0, tiles = 0;
+  for (int i = 0; i < n_layers; ++i) {
+    const int din = widths[i], dout = widths[i + 1];
+    net->w[i] = weights ? weights[i] : nullptr;
+    net->w_off[i] = w_off;
+    w_off += din * (dout + kPad);
+    net->dw_off[i] = dw_off;
+    dw_off += din * dout;
+    net->post_off[i] = post;
+    post += kBwdRows * (din + kPad);
+    net->tile_off[i] = tiles;
+    tiles += (din / 16) * (dout / 8);
+  }
+  net->tile_off[n_layers] = tiles;
+  net->n_layers = n_layers;
+  net->w_elems = w_off;
+  net->dw_floats = dw_off;
+  net->post_elems = post;
+  net->g_ld = max_g + kPad;
+  net->io_ld = (widths[0] > widths[n_layers] ? widths[0] : widths[n_layers]) + kPad;
+  return 0;
+}
+
+// the kernel, its threads, dynamic shared memory and rows per CTA step
+struct Launch {
+  const void* kernel;
+  int threads;
+  size_t smem;
+  int rows;
+};
+
+Launch launch_of(const Net& net, int dtype, int backward) {
+  if (dtype == 0)
+    return backward ? Launch{(const void*)fused_mlp_bwd_f32_kernel, kF32Threads,
+                             bwd_f32_smem(net), kF32BwdRows}
+                    : Launch{(const void*)fused_mlp_fwd_f32_kernel, kF32Threads,
+                             fwd_f32_smem(net), kF32FwdRows};
+  return backward ? Launch{(const void*)fused_mlp_bwd_bf16_kernel, kBwdWarps * 32,
+                           bwd_bf16_smem(net), kBwdRows}
+                  : Launch{(const void*)fused_mlp_fwd_bf16_kernel, kFwdWarps * 32,
+                           fwd_bf16_smem(net), kFwdWarps * kChunkRows};
+}
+
+}  // namespace
+
+// The launch plan of one kernel for a layer chain: *ctas, the persistent grid
+// (SMs x the CTAs that fit on one), and *tile_rows, the rows a CTA takes per
+// step; a call launches min(*ctas, ceil(m / *tile_rows)) CTAs. Also lifts the
+// kernel's dynamic shared-memory limit to the device's maximum. dtype: 0 =
+// float32, 1 = bfloat16; backward: 0 or 1. Returns 0, a cudaError_t code, -1
+// for arguments the kernels do not take, or -2 when the chain needs more
+// shared memory than a CTA can have.
+extern "C" int fused_mlp_plan(const int* widths, int n_layers, int dtype, int backward,
+                              int* ctas, int* tile_rows) {
+  Net net;
+  if ((dtype != 0 && dtype != 1) || make_net(nullptr, widths, n_layers, &net) != 0) return -1;
+  const Launch plan = launch_of(net, dtype, backward);
   int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
   if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
     return int(err);
-  if (smem > size_t(max_smem)) return -2;
-  if ((err = cudaFuncSetAttribute(fused_mlp_bwd_kernel<T>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))) !=
-      cudaSuccess)
+  if (plan.smem > size_t(max_smem)) return -2;
+  if ((err = cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  max_smem)) != cudaSuccess)
     return int(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return int(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<T>,
-                                                           kBwdThreads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan.kernel, plan.threads,
+                                                           plan.smem)) != cudaSuccess)
     return int(err);
-  const long long n_tiles = (m + kTileRows - 1) / kTileRows;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > n_tiles) grid = n_tiles;
-  if (grid < 1) grid = 1;
-  *ctas = int(grid);
+  *ctas = sms * (per_sm > 0 ? per_sm : 1);
+  *tile_rows = plan.rows;
   return 0;
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* g, void* dx, void* dw, float* partial, int ctas,
-               const BwdNet& net, long long m, cudaStream_t stream) {
-  const size_t smem = bwd_smem_floats(net.w_floats, net.dw_floats, net.n_layers) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  fused_mlp_bwd_kernel<T><<<unsigned(ctas), kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), partial, net, m);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  const int threads = 256;
-  const int blocks = (net.dw_floats + threads - 1) / threads;
-  fused_mlp_bwd_reduce_kernel<T><<<blocks, threads, 0, stream>>>(partial, ctas, net.dw_floats,
-                                                                 static_cast<T*>(dw));
+// Forward over m rows with `ctas` CTAs (from fused_mlp_plan). x is [m,
+// widths[0]], y is [m, widths[n_layers]], weights[i] is [widths[i],
+// widths[i+1]] row-major, all in the dtype and 16-byte aligned. Returns 0, a
+// cudaError_t code, or -1 for arguments the kernel does not take.
+extern "C" int fused_mlp_fwd(const void* x, void* y, const void* const* weights,
+                             const int* widths, int n_layers, long long m, int dtype, int ctas,
+                             void* stream) {
+  Net net;
+  if (m < 0 || ctas < 1 || make_net(weights, widths, n_layers, &net) != 0) return -1;
+  if (m == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    fused_mlp_fwd_f32_kernel<<<ctas, kF32Threads, fwd_f32_smem(net), s>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), net, m);
+  else if (dtype == 1)
+    fused_mlp_fwd_bf16_kernel<<<ctas, kFwdWarps * 32, fwd_bf16_smem(net), s>>>(
+        static_cast<const bf16*>(x), static_cast<bf16*>(y), net, m);
+  else
+    return -1;
   return int(cudaGetLastError());
 }
 
-int make_net(const void* const* weights, const int* widths, int n_layers, Net* net) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return -1;
-  int off = 0;
-  for (int i = 0; i <= n_layers; ++i) {
-    if (widths[i] <= 0 || widths[i] % 16 != 0 || widths[i] > kMaxWidth) return -1;
-    net->width[i] = widths[i];
-  }
-  for (int i = 0; i < n_layers; ++i) {
-    net->w[i] = weights ? weights[i] : nullptr;
-    net->w_off[i] = off;
-    off += widths[i] * widths[i + 1];
-  }
-  net->n_layers = n_layers;
-  net->w_floats = off;
-  return 0;
-}
-
-int make_bwd_net(const void* const* weights, const int* widths, int n_layers, BwdNet* net) {
-  Net fwd;
-  if (make_net(weights, widths, n_layers, &fwd) != 0) return -1;
-  int off = 0, dw_off = 0;
-  for (int i = 0; i <= n_layers; ++i) net->width[i] = widths[i];
-  for (int i = 0; i < n_layers; ++i) {
-    net->w[i] = fwd.w[i];
-    net->w_ld[i] = widths[i + 1] + 4;
-    net->w_off[i] = off;
-    net->dw_off[i] = dw_off;
-    off += widths[i] * net->w_ld[i];
-    dw_off += widths[i] * widths[i + 1];
-  }
-  net->n_layers = n_layers;
-  net->w_floats = off;
-  net->dw_floats = dw_off;
-  return 0;
-}
-
-}  // namespace
-
-// Returns 0 on success, a cudaError_t code on a CUDA failure, or -1 when the
-// arguments are outside what the kernel takes (the Python wrapper checks them
-// first). dtype: 0 = float32, 1 = bfloat16. weights[i] is [widths[i],
-// widths[i+1]] row-major; x is [m, widths[0]], y is [m, widths[n_layers]].
-extern "C" int fused_mlp_fwd(const void* x, void* y, const void* const* weights,
-                             const int* widths, int n_layers, long long m, int dtype,
-                             void* stream) {
-  Net net;
-  if (m < 0 || make_net(weights, widths, n_layers, &net) != 0) return -1;
-  if (m == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, net, m, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, y, net, m, s);
-  return -1;
-}
-
-// The number of CTAs fused_mlp_bwd launches for m rows: the rows of the
-// partial-dW workspace the caller allocates. Returns 0 and sets *ctas, a
-// cudaError_t code, -1 for arguments the kernel does not take, or -2 when
-// the layer chain needs more shared memory than a CTA can have.
-extern "C" int fused_mlp_bwd_ctas(const int* widths, int n_layers, long long m, int dtype,
-                                  int* ctas) {
-  BwdNet net;
-  if (m < 1 || make_bwd_net(nullptr, widths, n_layers, &net) != 0) return -1;
-  if (dtype == 0) return bwd_ctas<float>(net, m, ctas);
-  if (dtype == 1) return bwd_ctas<__nv_bfloat16>(net, m, ctas);
-  return -1;
-}
-
-// Backward of fused_mlp_fwd for m >= 1 rows. g is dL/dy [m, widths[n_layers]]
-// in the input dtype; dx [m, widths[0]] may be null (not wanted); dw receives
-// every layer's dW, concatenated row-major in layer order, in the input
-// dtype; partial is a [ctas, sum_i widths[i]*widths[i+1]] f32 workspace with
-// ctas from fused_mlp_bwd_ctas. Return codes as fused_mlp_bwd_ctas.
+// Backward of fused_mlp_fwd for m >= 1 rows, with `ctas` CTAs (from
+// fused_mlp_plan). g is dL/dy [m, widths[n_layers]] in the dtype; dx [m,
+// widths[0]] may be null (not wanted); dw receives every layer's dW,
+// concatenated row-major in layer order, in the dtype; partial is a [ctas,
+// sum_i widths[i]*widths[i+1]] f32 workspace. Returns as fused_mlp_fwd.
 extern "C" int fused_mlp_bwd(const void* x, const void* g, void* dx, void* dw, float* partial,
                              int ctas, const void* const* weights, const int* widths,
                              int n_layers, long long m, int dtype, void* stream) {
-  BwdNet net;
-  if (m < 1 || ctas < 1 || make_bwd_net(weights, widths, n_layers, &net) != 0) return -1;
+  Net net;
+  if (m < 1 || ctas < 1 || make_net(weights, widths, n_layers, &net) != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(x, g, dx, dw, partial, ctas, net, m, s);
-  if (dtype == 1) return launch_bwd<__nv_bfloat16>(x, g, dx, dw, partial, ctas, net, m, s);
-  return -1;
+  cudaError_t err;
+  const dim3 threads(kReduceCols, kReduceRows);
+  const int blocks = (net.dw_floats + kReduceCols - 1) / kReduceCols;
+  if (dtype == 0) {
+    fused_mlp_bwd_f32_kernel<<<ctas, kF32Threads, bwd_f32_smem(net), s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), static_cast<float*>(dx),
+        partial, net, m);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    fused_mlp_bwd_reduce_kernel<float><<<blocks, threads, 0, s>>>(partial, ctas, net.dw_floats,
+                                                                  static_cast<float*>(dw));
+  } else if (dtype == 1) {
+    // a pass per kDwTilesPerPass dW tiles (one pass for up to 64, e.g. both
+    // NGP MLPs); only the first writes dx
+    for (int t0 = 0; t0 < net.tile_off[n_layers]; t0 += kDwTilesPerPass) {
+      fused_mlp_bwd_bf16_kernel<<<ctas, kBwdWarps * 32, bwd_bf16_smem(net), s>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+          t0 == 0 ? static_cast<bf16*>(dx) : nullptr, partial, net, m, t0);
+      if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    }
+    fused_mlp_bwd_reduce_kernel<bf16><<<blocks, threads, 0, s>>>(partial, ctas, net.dw_floats,
+                                                                 static_cast<bf16*>(dw));
+  } else {
+    return -1;
+  }
+  return int(cudaGetLastError());
 }

@@ -279,15 +279,22 @@ class NGPModel(nn.Module):
                           self.groups, compute_dtype=self.compute_dtype)
         return hash_encode(self.tables[0], positions, self.cfg.grid, self.levels)
 
-    def forward(self, positions: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-        """positions [N, 3] in [0, 1], dirs [N, 3] warped to [0, 1].
-        Returns raw [N, 4] in f32."""
-        pos_enc = self.encode(positions)
-        dir_enc = sh_encode(dirs * 2.0 - 1.0, degree=self.cfg.sh_degree, pad_to=16)
+    def encode_dirs(self, dirs: torch.Tensor) -> torch.Tensor:
+        """SH encoding of dirs [N, 3] warped to [0, 1], padded to 16."""
+        return sh_encode(dirs * 2.0 - 1.0, degree=self.cfg.sh_degree, pad_to=16)
+
+    def net_inputs(self, positions: torch.Tensor, dirs: torch.Tensor):
+        """(pos_enc, dir_enc): the MLPs' inputs, in their dtype."""
+        pos_enc, dir_enc = self.encode(positions), self.encode_dirs(dirs)
         if self.cfg.use_bf16:
             pos_enc = pos_enc.to(torch.bfloat16)
             dir_enc = dir_enc.to(torch.bfloat16)
-        return self.net(pos_enc, dir_enc).float()
+        return pos_enc, dir_enc
+
+    def forward(self, positions: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+        """positions [N, 3] in [0, 1], dirs [N, 3] warped to [0, 1].
+        Returns raw [N, 4] in f32."""
+        return self.net(*self.net_inputs(positions, dirs)).float()
 
     def density_raw(self, positions: torch.Tensor) -> torch.Tensor:
         pos_enc = self.encode(positions)

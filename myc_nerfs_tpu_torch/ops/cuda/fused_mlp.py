@@ -14,8 +14,10 @@ The backward follows the Pallas ``_bwd_kernel``: it recomputes the
 forward's post-activations (rounded to x's dtype), accumulates each dW in
 f32 from the unrounded f32 gradient, and rounds the gradient to x's dtype
 before each dgrad product. Weights use the JAX layout, [in, out] per layer.
-The kernels take widths that are multiples of 16 up to 64 (both NGP MLPs);
-the plain versions take any widths.
+The kernels take widths that are multiples of 16 up to 64 (both NGP MLPs),
+at most 8 layers, in bf16 (tensor cores) or f32 (CUDA cores); the plain
+versions take any widths. ``mlp_work`` gives a call's flops, bytes and its
+H100 bound from the shapes.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ...utils.timing import roofline
 from . import _build
 
 SOURCE = _build.CSRC / "fused_mlp.cu"
@@ -79,6 +82,24 @@ def fused_mlp_backward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor
     return g.to(x.dtype), dws
 
 
+def mlp_work(widths: Sequence[int], rows: int, dtype: torch.dtype,
+             backward: bool = False) -> dict:
+    """The work of fused_mlp (or, with ``backward``, of fused_mlp_backward)
+    on ``rows`` rows, from the shapes alone: the function's flops, the
+    bytes it must move (x, y or g, dx and the weights and dW, each read or
+    written once) and its H100 bound (utils.timing.roofline)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    macs = [a * b for a, b in zip(widths[:-1], widths[1:])]
+    if backward:
+        # recompute the hidden layers, dW of every layer, dgrad down to dx
+        flops = 2 * rows * (sum(macs[:-1]) + 2 * sum(macs))
+        nbytes = (rows * (2 * widths[0] + widths[-1]) + 2 * sum(macs)) * size
+    else:
+        flops = 2 * rows * sum(macs)
+        nbytes = (rows * (widths[0] + widths[-1]) + sum(macs)) * size
+    return roofline(flops, nbytes, dtype)
+
+
 def build() -> Tuple[Path, float]:
     """Compile csrc/fused_mlp.cu (see _build.build). Returns (path,
     seconds spent compiling; 0.0 when it was already built)."""
@@ -91,13 +112,46 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, ptr]
-    lib.fused_mlp_bwd_ctas.argtypes = [ints, i32, i64, i32, ints]
+    lib.fused_mlp_plan.argtypes = [ints, i32, i32, i32, ints, ints]
+    lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
     lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
                                   i32, i64, i32, ptr]
-    for fn in (lib.fused_mlp_fwd, lib.fused_mlp_bwd_ctas, lib.fused_mlp_bwd):
+    for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(widths: Tuple[int, ...], code: int, backward: bool,
+          device: int) -> Tuple[int, int]:
+    """(CTAs of the persistent grid, rows a CTA takes per step) of one
+    kernel for a layer chain on one device, worked out once: the C side's
+    occupancy query and shared-memory limit stay out of every call."""
+    lib = _library()
+    ctas, rows = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.fused_mlp_plan((ctypes.c_int * len(widths))(*widths),
+                                 len(widths) - 1, code, int(backward),
+                                 ctypes.byref(ctas), ctypes.byref(rows))
+    if err == -2:
+        raise ValueError(f"fused_mlp {'backward ' if backward else ''}kernel: "
+                         f"widths {list(widths)} need more shared memory than "
+                         "a CTA can have")
+    if err != 0:
+        raise RuntimeError(f"fused_mlp kernel plan failed (error {err})")
+    return ctas.value, rows.value
+
+
+def _ctas(widths: Sequence[int], x: torch.Tensor, backward: bool) -> int:
+    ctas, rows = _plan(tuple(widths), _DTYPE_CODE[x.dtype], backward, x.device.index)
+    return max(1, min(ctas, -(-x.shape[0] // rows)))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (the kernels move 16-byte
+    vectors)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> None:
@@ -140,18 +194,19 @@ def _forward(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_mlp_reference(x, weights)
     widths = _kernel_widths(x, weights)
-    x = x.contiguous()
-    weights = [w.contiguous() for w in weights]
+    x = _aligned(x)
+    weights = [_aligned(w) for w in weights]
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
     lib = _library()
+    ctas = _ctas(widths, x, backward=False)
     w_ptrs, c_widths = _c_args(weights, widths)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_mlp_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
                                 len(weights), x.shape[0], _DTYPE_CODE[x.dtype],
-                                stream)
+                                ctas, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed (error {err})")
     fused_mlp.launches += 1
@@ -177,9 +232,9 @@ def fused_mlp_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if g.device != x.device:
         raise ValueError("fused_mlp backward: g must share x's device")
     m = x.shape[0]
-    x = x.contiguous()
-    weights = [w.contiguous() for w in weights]
-    g = g.to(x.dtype).contiguous()
+    x = _aligned(x)
+    weights = [_aligned(w) for w in weights]
+    g = _aligned(g.to(x.dtype))
     sizes = [a * b for a, b in zip(widths[:-1], widths[1:])]
     dw = torch.empty(sum(sizes), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
@@ -187,25 +242,16 @@ def fused_mlp_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
         dw.zero_()
     else:
         lib = _library()
+        ctas = _ctas(widths, x, backward=True)
         w_ptrs, c_widths = _c_args(weights, widths)
-        code = _DTYPE_CODE[x.dtype]
+        partial = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         with torch.cuda.device(x.device):
-            ctas = ctypes.c_int(0)
-            err = lib.fused_mlp_bwd_ctas(c_widths, len(weights), m, code,
-                                         ctypes.byref(ctas))
-            if err == -2:
-                raise ValueError(f"fused_mlp backward kernel: widths {widths} "
-                                 "need more shared memory than a CTA can have")
-            if err != 0:
-                raise RuntimeError(f"fused_mlp backward kernel: occupancy "
-                                   f"query failed (error {err})")
-            partial = torch.empty((ctas.value, sum(sizes)), dtype=torch.float32,
-                                  device=x.device)
-            stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.fused_mlp_bwd(x.data_ptr(), g.data_ptr(),
                                     dx.data_ptr() if need_dx else None,
-                                    dw.data_ptr(), partial.data_ptr(), ctas.value,
-                                    w_ptrs, c_widths, len(weights), m, code, stream)
+                                    dw.data_ptr(), partial.data_ptr(), ctas,
+                                    w_ptrs, c_widths, len(weights), m,
+                                    _DTYPE_CODE[x.dtype], stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp backward kernel launch failed (error {err})")
         fused_mlp_backward.launches += 1

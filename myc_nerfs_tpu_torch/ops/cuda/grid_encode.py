@@ -26,6 +26,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...utils.timing import roofline
 from .. import brick_grid as bg
 from . import _build
 
@@ -201,6 +202,31 @@ def brick_encode_backward(tables: Sequence[torch.Tensor], positions: torch.Tenso
     _launch("brick_encode_bwd", grads, positions, g, cfg, levels, groups, bf16)
     brick_encode_backward.launches += 1
     return grads
+
+
+def encode_work(tables: Sequence[torch.Tensor], positions: torch.Tensor,
+                cfg: bg.HashGridConfig, levels: bg.BrickLevels, groups: bg.LevelGroups,
+                compute_dtype=None, backward: bool = False) -> dict:
+    """The work of brick_encode (or, with ``backward``, of
+    brick_encode_backward) on these positions, from this run's data: the
+    function's flops (per sample, level and corner, its weight and F
+    multiply-adds) and the bytes it must move, each once: the positions, the
+    features (or their gradient), and the table elements these positions
+    touch (forward) or every element of the f32 table gradients, which the
+    backward returns whole. With its H100 bound (utils.timing.roofline)."""
+    n, F, L = positions.shape[0], cfg.n_features, levels.n_levels
+    io_size = 2 if _bf16_flag(compute_dtype) else 4
+    flops = n * L * 8 * (2 * F + 2)
+    nbytes = n * 3 * 4 + n * L * F * io_size
+    if backward:
+        nbytes += sum(t.numel() for t in tables) * 4
+    else:
+        bases: dict = {}
+        for g, _, base, _ in bg._level_taps(positions, cfg, levels, groups, torch.float32):
+            bases.setdefault(g, []).append(base.reshape(-1))
+        touched = sum(torch.unique(torch.cat(b)).numel() for b in bases.values()) * F
+        nbytes += touched * tables[0].element_size()
+    return roofline(flops, nbytes, torch.float32)
 
 
 class _PairedEncode(torch.autograd.Function):

@@ -74,7 +74,7 @@ def _scratch_rows(n_bytes: int) -> int:
     return n_bytes // (4 * ROW_FLOATS)
 
 
-def smem_scratch_reference(n_bytes: int, device="cpu") -> torch.Tensor:
+def smem_scratch_reference(n_bytes: int, device="cuda") -> torch.Tensor:
     s = torch.zeros((_scratch_rows(n_bytes), ROW_FLOATS), device=device)
     s[0] = 1.0
     s[-1] = 1.0
@@ -172,7 +172,7 @@ def scatter_add_rows(idx: torch.Tensor, val: torch.Tensor, n_rows: int) -> torch
     return out
 
 
-def smem_scratch(n_bytes: int, device="cpu") -> torch.Tensor:
+def smem_scratch(n_bytes: int, device="cuda") -> torch.Tensor:
     """A one-element f32 tensor: 2.0 when an n-byte scratch was written.
     On a CUDA device the kernel takes n bytes of dynamic shared memory;
     a size the block may not have raises."""

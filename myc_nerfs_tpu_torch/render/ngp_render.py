@@ -193,6 +193,13 @@ def render_marched(model_apply: Callable, marched: MarchedRays,
     N, K, _ = marched.positions.shape
     raw = model_apply(marched.positions.reshape(-1, 3),
                       marched.dirs.reshape(-1, 3)).reshape(N, K, 4)
+    return composite_marched(raw, marched, bg_color, early_stop_eps)
+
+
+def composite_marched(raw: torch.Tensor, marched: MarchedRays,
+                      bg_color: torch.Tensor, early_stop_eps: float = 1e-4
+                      ) -> NGPRenderOut:
+    """Composite the field's raw [N, K, 4] on marched samples (CalcRgb fwd)."""
     sigma = density_activation(raw[..., 3])
     rgb_s = rgb_activation(raw[..., :3])
     weights, t_left = composite_weights(sigma, marched.dt, marched.valid,

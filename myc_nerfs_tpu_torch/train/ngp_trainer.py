@@ -208,17 +208,18 @@ def apply_param_update(cfg: NGPTrainConfig, params: Sequence[torch.Tensor],
 
 
 class NGPTrainer:
-    """Host-side orchestration. ``device`` places every tensor; the
-    generator draws the initial weights, and the march jitter and grid
-    samples of calls that are given neither draws nor a generator."""
+    """Host-side orchestration. ``device`` (cuda unless the caller asks for
+    the CPU) places every tensor; the generator draws the initial weights,
+    and the march jitter and grid samples of calls that are given neither
+    draws nor a generator."""
 
     def __init__(self, model_cfg: NGPModelConfig, rcfg: NGPRenderConfig,
-                 cfg: NGPTrainConfig, generator: torch.Generator, device=None,
+                 cfg: NGPTrainConfig, generator: torch.Generator, device="cuda",
                  camera_c2w: Optional[torch.Tensor] = None,
                  focal: Optional[torch.Tensor] = None,
                  image_wh: Optional[Tuple[int, int]] = None,
                  loss_fn=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device)
         self.rcfg = rcfg
         self.cfg = cfg
         self.generator = generator

@@ -200,7 +200,7 @@ def test_smem_scratch(cuda_device, kb):
     before = gp.smem_scratch.launches
     out = gp.smem_scratch(kb * 1024, cuda_device)
     assert gp.smem_scratch.launches == before + 1
-    assert torch.equal(out.cpu(), gp.smem_scratch_reference(kb * 1024))
+    assert torch.equal(out.cpu(), gp.smem_scratch_reference(kb * 1024, "cpu"))
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(cuda_device):

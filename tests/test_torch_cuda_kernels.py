@@ -35,6 +35,11 @@ def _net(widths, rows, dtype, device, seed=0):
     return x, ws
 
 
+# rows: ragged 16-row strips and 32-row warp chunks on both sides of each
+# boundary, and one 4096-ray x 64-sample chunk
+ROWS = [1, 15, 16, 17, 63, 64, 65, 1000, 70001, 262144]
+
+
 # f32: the same products summed in another order (1e-5 of the scale);
 # bf16: every layer rounds to bf16, a sum on the other side of a rounding
 # boundary moves an intermediate by one ulp (2 ulps, 2^-7, of the scale)
@@ -42,7 +47,7 @@ def _net(widths, rows, dtype, device, seed=0):
                                         (torch.bfloat16, 2.0 ** -7)])
 @pytest.mark.parametrize("widths", [(32, 64, 16), (32, 64, 64, 16),
                                     (16, 32, 48, 64, 16)])
-@pytest.mark.parametrize("rows", [1, 63, 1000, 70001])
+@pytest.mark.parametrize("rows", ROWS)
 def test_fused_mlp_matches_plain(cuda_device, widths, dtype, rtol, rows):
     x, ws = _net(widths, rows, dtype, cuda_device)
     before = fm.fused_mlp.launches
@@ -68,10 +73,11 @@ def test_fused_mlp_refuses_what_the_kernel_does_not_take(cuda_device):
         fm.fused_mlp(x, [ws[0].cpu()])
     # a chain whose backward needs more shared memory than a CTA has: the
     # forward runs, the backward raises
-    x, ws = _net((64,) * 9, 10, torch.float32, cuda_device)
-    y = fm.fused_mlp(x.requires_grad_(), ws)
-    with pytest.raises(ValueError, match="shared memory"):
-        y.sum().backward()
+    for dtype in (torch.float32, torch.bfloat16):
+        x, ws = _net((64,) * 9, 10, dtype, cuda_device)
+        y = fm.fused_mlp(x.requires_grad_(), ws)
+        with pytest.raises(ValueError, match="shared memory"):
+            y.float().sum().backward()
 
 
 def test_ngp_model_on_gpu_matches_cpu(cuda_device):
@@ -112,9 +118,11 @@ def _grad_out(rows, width, dtype, device, seed=2):
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 
 
+# (64, 64, 64, 64) has 96 dW tiles of 16x8: the bf16 kernel runs two passes
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("widths", [(32, 64, 16), (32, 64, 64, 16)])
-@pytest.mark.parametrize("rows", [1, 63, 1000, 70001])
+@pytest.mark.parametrize("widths", [(32, 64, 16), (32, 64, 64, 16), (16, 32, 48, 64, 16),
+                                    (64, 64, 64, 64)])
+@pytest.mark.parametrize("rows", ROWS)
 def test_fused_mlp_backward_matches_plain(cuda_device, widths, dtype, rows):
     x, ws = _net(widths, rows, dtype, cuda_device)
     g = _grad_out(rows, widths[-1], dtype, cuda_device)
@@ -188,3 +196,42 @@ def test_ngp_model_gradient_on_gpu_matches_cpu(cuda_device):
         scale = max(1e-6, b.grad.abs().max().item())
         err = (a.grad.cpu() - b.grad).abs().max().item()
         assert err <= 1e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(32, 64, 16), (32, 64, 64, 16)])
+def test_fused_mlp_keeps_nan(cuda_device, widths, dtype):
+    """A NaN in x comes out NaN in the same rows of y and nowhere else (the
+    ReLU keeps it); a NaN in g comes out NaN in the same rows of dx; and
+    dx and every dW have the plain version's NaN pattern."""
+    rows = 1000
+    x, ws = _net(widths, rows, dtype, cuda_device)
+    bad = torch.tensor([0, 17, 500, 999], device=cuda_device)
+    x[bad, 3] = float("nan")
+    with torch.no_grad():
+        y = fm.fused_mlp(x, ws)
+    assert torch.isnan(y[bad]).all()
+    assert torch.equal(torch.isnan(y).any(1).nonzero().flatten(), bad)
+    g = _grad_out(rows, widths[-1], dtype, cuda_device)
+    g_bad = torch.tensor([3, 400], device=cuda_device)
+    g[g_bad, 0] = float("nan")
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    assert torch.isnan(dx[g_bad]).all()
+    for a, b in zip([dx] + dws, [dx_ref] + dws_ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_rgb_head_dw_is_zero(cuda_device, dtype):
+    """The rgb head is padded from 3 to 16 columns with zeros and only its
+    first 3 outputs are used (models/ngp.py): dW columns 3..15 come out
+    exactly 0, the others do not."""
+    rows = 70001
+    x, ws = _net((32, 64, 64, 16), rows, dtype, cuda_device)
+    ws[2][:, 3:] = 0
+    ws = [w.requires_grad_() for w in ws]
+    y = fm.fused_mlp(x, ws)[:, :3]
+    (y.float() * _grad_out(rows, 3, torch.float32, cuda_device)).sum().backward()
+    assert torch.equal(ws[2].grad[:, 3:], torch.zeros_like(ws[2].grad[:, 3:]))
+    assert (ws[2].grad[:, :3] != 0).all()

@@ -233,3 +233,21 @@ def test_backward_needs_input_grad():
     assert xt.grad is None and all(w.grad is not None for w in wt)
     dx, dws = fm.fused_mlp_backward(xt, wt, torch.ones(20, 16), need_dx=False)
     assert dx is None and len(dws) == 2
+
+
+# (widths, backward, dtype) -> (flops, bytes, bound in us, bound_by) at 262144
+# rows: the H100 bounds of the NGP MLPs (bytes: x and y, or x, g and dx, plus
+# the weights; flops: the function's, against 989 TFLOP/s bf16, 67 f32)
+@pytest.mark.parametrize("widths,backward,dtype,expect", [
+    ((32, 64, 16), False, torch.bfloat16, (1.611e9, 25.17e6, 7.51, "bytes")),
+    ((32, 64, 64, 16), False, torch.bfloat16, (3.758e9, 25.18e6, 7.52, "bytes")),
+    ((32, 64, 64, 16), True, torch.bfloat16, (10.74e9, 41.97e6, 12.53, "bytes")),
+    ((32, 64, 64, 16), True, torch.float32, (10.74e9, 83.94e6, 160.3, "operations")),
+    ((32, 64, 16), False, torch.float32, (1.611e9, 50.34e6, 24.04, "operations")),
+])
+def test_mlp_work_bounds(widths, backward, dtype, expect):
+    work = fm.mlp_work(widths, 262144, dtype, backward)
+    flops, nbytes, bound_us, by = expect
+    np.testing.assert_allclose([work["flops"], work["bytes"], 1e3 * work["bound_ms"]],
+                               [flops, nbytes, bound_us], rtol=1e-3)
+    assert work["bound_by"] == by

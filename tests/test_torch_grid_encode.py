@@ -236,3 +236,24 @@ def test_failed_build_raises(tmp_path):
     broken.write_text("this is not C++\n")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(broken)
+
+
+def test_encode_work_counts_what_the_positions_touch():
+    """encode_work's bytes: the forward reads only the table elements the
+    positions touch (at most 8 vertices x F per sample and level, and no
+    more than the tables hold, counted by the plain version's taps), the
+    backward writes every element of the f32 gradients."""
+    _, (cfg, levels, groups), tables, pos = _setup(3, 700, 5)
+    tables = [torch.from_numpy(t) for t in tables]
+    pos = torch.from_numpy(pos)
+    n, L, F = 700, levels.n_levels, cfg.n_features
+    fwd = ge.encode_work(tables, pos, cfg, levels, groups)
+    io = n * 3 * 4 + n * L * F * 4
+    touched = (fwd["bytes"] - io) // 4
+    assert 0 < touched <= min(n * L * 8 * F, sum(t.numel() for t in tables))
+    one = ge.encode_work(tables, pos[:1], cfg, levels, groups)
+    assert (one["bytes"] - 12 - L * F * 4) // 4 == L * 8 * F  # distinct corners
+    bwd = ge.encode_work(tables, pos, cfg, levels, groups, torch.bfloat16, backward=True)
+    assert bwd["bytes"] == n * 3 * 4 + n * L * F * 2 + 4 * sum(t.numel() for t in tables)
+    assert fwd["flops"] == bwd["flops"] == n * L * 8 * (2 * F + 2)
+    assert fwd["bound_by"] == bwd["bound_by"] == "bytes"

@@ -59,7 +59,7 @@ def test_scatter_add_rows_plain_matches_numpy(n):
 def test_smem_scratch_plain(kb):
     """The plain version has no shared-memory limit: any whole number of
     128-float rows gives 2.0."""
-    assert gp.smem_scratch(kb * 1024).item() == 2.0
+    assert gp.smem_scratch(kb * 1024, "cpu").item() == 2.0
 
 
 def test_probe_wrappers_refuse_other_devices_and_sizes():

@@ -163,7 +163,7 @@ def _trainers(grid_impl):
     tt = ttr.NGPTrainer(tngp.NGPModelConfig(grid=tngp.HashGridConfig(**DEMO_GRID),
                                             grid_impl=grid_impl),
                         tnr.NGPRenderConfig(**rkw), ttr.NGPTrainConfig(**tkw),
-                        torch.Generator().manual_seed(0))
+                        torch.Generator().manual_seed(0), device="cpu")
     okw = dict(grid_size=G, n_cascades=3, max_cascade=0)
     jt.occ_cfg, tt.occ_cfg = jocc.OccupancyConfig(**okw), tocc.OccupancyConfig(**okw)
     u = np.random.default_rng(0).uniform(0, 1, (3, G, G, G)).astype(np.float32)
@@ -240,7 +240,7 @@ def test_train_step_cadence():
                         ttr.NGPTrainConfig(update_den_freq=4, n_rays_per_batch=64,
                                            target_batch_size=1 << 10,
                                            n_grid_uniform=256, n_grid_nonuniform=256),
-                        torch.Generator().manual_seed(0))
+                        torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(2)
     o = np.full((64, 3), 0.5, np.float32) + rng.uniform(-0.1, 0.1, (64, 3)).astype(np.float32)
     d = rng.standard_normal((64, 3)).astype(np.float32)

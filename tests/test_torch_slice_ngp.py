@@ -151,7 +151,8 @@ def test_port_checkpoint_restores_in_jax(port_run):
                                             jax.random.PRNGKey(1))
     jstate, meta = jax_restore(str(pdir / "model.ckpt"), jtrainer.state)
     assert meta["step"] == 48 and int(jstate.step) == 48
-    trainer, _ = run_net.build_trainer(load_config(str(cfg)), torch.Generator())
+    trainer, _ = run_net.build_trainer(load_config(str(cfg)), torch.Generator(),
+                                       device="cpu")
     state, _ = restore_checkpoint(str(pdir / "model.ckpt"), trainer.state)
     model = state.params
     adam, sched = jstate.opt_state
@@ -189,3 +190,16 @@ def test_jax_renders_port_checkpoint(port_run):
         assert close.mean() >= 0.99, f"view {i}: {close.mean():.4f}"
     jp, tp = _mean_psnr(jdir / "psnr.txt"), _mean_psnr(pdir / "psnr.txt")
     assert abs(jp - tp) < 0.05, (jp, tp)
+
+
+def test_run_net_needs_the_card_unless_asked_for_the_cpu(tmp_path):
+    """run_net runs on cuda unless --device cpu is given: without a card and
+    without the flag it exits with an error, and runs nothing on the CPU."""
+    from myc_nerfs_tpu_torch.cli import run_net
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        run_net.main(["--config-file", os.path.join(REPO, "configs/ngp/demo_synthetic.py"),
+                      "--task", "test", "--save_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
