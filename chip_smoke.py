@@ -4,9 +4,10 @@ Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: compiles the three sources under myc_nerfs_tpu_torch/csrc/
    (fused_mlp.cu, grid_encode.cu, grid_probe.cu) with nvcc, all at once,
-   and prints each one's build time; then counts the tensor-core (HMMA)
-   instructions of the bf16 fused-MLP kernels in the built library
-   (cuobjdump -sass), which must not be 0.
+   and prints each one's build time; then counts, in the built libraries'
+   SASS (cuobjdump -sass), the tensor-core (HMMA) instructions of the bf16
+   fused-MLP kernels, which must not be 0, and the global reductions (RED)
+   and atomics (ATOM) of the encode backward, which must add by RED.
 3. kernel: the fused_mlp forward kernel against its plain PyTorch version
    at both NGP MLP shapes (density 32->64->16, rgb 32->64->64->16),
    262144 rows (one 4096-ray x 64-sample chunk), f32 and bf16, TF32 off;
@@ -30,6 +31,10 @@ Phases, each ending in one line (a failure exits non-zero):
    f32 and bf16, with the stated tolerances, device times (graph_ms), the
    time of one call from the host (call_ms) and the bound of the bytes
    this run's positions must move (ops/cuda/grid_encode.py::encode_work).
+   The backward is timed with g on every sample and again with g zero off
+   the march's valid samples, the train step's gradient pattern
+   (ms_masked); a diagnostic line splits both times by level group (g
+   zero outside one group's columns).
 6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
    line each, with their library calls and bounds; every probe must be
    correct.
@@ -48,11 +53,18 @@ Phases, each ending in one line (a failure exits non-zero):
    PSNR must rise, and every encode and MLP kernel must have run. Then
    the step's stages are timed, and on one batch every parameter's
    gradient through the kernels is compared with the plain path's
-   (use_encode_kernel=False, use_fully=False).
+   (use_encode_kernel=False, use_fully=False), and the tables' gradient
+   through the encode kernels with the plain encode's under the MLP
+   kernels; beside it the backward kernel alone against its plain version
+   on the same output gradient, and the count of the encode's output
+   elements, and of their gradients, that differ between the two paths.
 9. profile (after every counted and timed run, so that no profiler window
    precedes them): one render chunk stage by stage, one 800x800 frame and
    one train block at 4096 rays under torch.profiler, with the device's
    busy share of the wall time (utils/profiling.py).
+10. split: phase 8's encode comparison at many trained states: the config
+   trained again from another seed, checked after each of its 16 blocks on
+   two batches; one line per check and a summary.
 Then a JSON line describing each kernel (for the fused MLP and encode
 kernels its numbers are the bf16 ones, the Car slice's dtype, summed over
 the shapes; ``ms`` is graph_ms, ``call_ms`` median_ms), and last the
@@ -100,8 +112,9 @@ PSNR_RISE = 9.0
 # gradient to bf16 (up to 2^-9 of each element) at every layer boundary
 # before dW, and the kernel does not; allow two bf16 ulps (2^-7). Tables,
 # the encode kernels alone: against the plain encode under the same MLP
-# kernels, the same contributions added by f32 atomics in another order
-# (1e-5). Tables through both kernels against the plain path: their
+# kernels (whose forward agrees bit for bit: both sum in corner order), the
+# same contributions added by f32 atomics in another order (1e-5). Tables
+# through both kernels against the plain path: their
 # gradient is the MLP's dx, whose bf16 elements may each sit one rounding
 # away from the plain path's (the tensor cores sum in another order than
 # cuBLAS). 15 runs of this phase on an H100 80GB HBM3 at 700 W read 1.4e-5
@@ -110,8 +123,11 @@ GRAD_REL_TOL = 2.0 ** -7
 TABLE_GRAD_REL_TOL = 1e-5
 TABLE_E2E_REL_TOL = 3e-3
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
-SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel")
 BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
+SPLIT_BATCHES = 2                        # batches checked at each state (phase 10)
+SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel")
+# the encode backward's instance on the Car path (F = 2, bf16), mangled
+ENCODE_BWD_SASS = "brick_encode_bwd_kernelILi2ELb1E"
 
 
 def fail(msg: str) -> None:
@@ -166,20 +182,42 @@ def phase_build() -> None:
               f"in {secs:.2f} s", flush=True)
     print(f"build: all sources in {time.perf_counter() - t0:.2f} s (in parallel)",
           flush=True)
-    # the bf16 MLP kernels must run on the tensor cores: HMMA in their SASS
+    # the bf16 MLP kernels must run on the tensor cores: HMMA in their SASS;
+    # the encode backward adds by reductions (RED), not returning atomics
+    hmma = sass_counts(results[0][0], SASS_KERNELS, ("HMMA",))
+    red = sass_counts(results[1][0], (ENCODE_BWD_SASS,), ("RED", "ATOM"))[ENCODE_BWD_SASS]
+    print("sass: HMMA instructions (cuobjdump -sass) "
+          + " ".join(f"{k}={n['HMMA']}" for k, n in hmma.items())
+          + f"; brick_encode_bwd_kernel<F=2, bf16> RED={red['RED']} ATOM={red['ATOM']}",
+          flush=True)
+    if not all(n["HMMA"] for n in hmma.values()):
+        fail(f"a bf16 fused-MLP kernel has no tensor-core instruction: {hmma}")
+    if not red["RED"]:
+        fail(f"the encode backward adds by no RED instruction: {red}")
+
+
+def sass_counts(lib: Path, kernels, opcodes) -> dict:
+    """Instructions of each family in ``opcodes`` (HMMA.16816... is HMMA;
+    ATOMG counts as ATOM) in the SASS of each kernel whose (mangled) name
+    contains one of ``kernels``."""
+    from myc_nerfs_tpu_torch.ops.cuda import _build
+
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(results[0][0])], capture_output=True,
-                          text=True, check=True).stdout
-    hmma, kernel = {k: 0 for k in SASS_KERNELS}, None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {k: {op: 0 for op in opcodes} for k in kernels}
+    kernel = None
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = next((k for k in SASS_KERNELS if k in line), None)
-        elif kernel and "HMMA" in line:
-            hmma[kernel] += 1
-    print("sass: HMMA instructions (cuobjdump -sass) "
-          + " ".join(f"{k}={n}" for k, n in hmma.items()), flush=True)
-    if not all(hmma.values()):
-        fail(f"a bf16 fused-MLP kernel has no tensor-core instruction: {hmma}")
+            kernel = next((k for k in kernels if k in line), None)
+        elif kernel and "*/" in line:
+            # "/*0a40*/   @P0 RED.E.ADD.F32... ;": the opcode after any predicate
+            words = line.split("*/", 1)[1].split()
+            words = words[1:] if words and words[0].startswith("@") else words
+            family = words[0].split(".")[0] if words else ""
+            for op in opcodes:
+                counts[kernel][op] += family in (op, op + "G")
+    return counts
 
 
 def library_chain(x, ws):
@@ -294,10 +332,11 @@ def phase_kernel_bwd(fm) -> dict:
 
 def encode_inputs():
     """The Car model (seeded random weights, two grid updates), its 8
-    level-group tables refilled with uniform +-1 values, and 262144
-    positions: one 4096-ray x 64-sample chunk of a real march of the Car
-    render, the first of them replaced by positions on each level's cell and
-    brick boundaries, and by the corners of the unit cube."""
+    level-group tables refilled with uniform +-1 values, 262144 positions
+    (one 4096-ray x 64-sample chunk of a real march of the Car render, the
+    first of them replaced by positions on each level's cell and brick
+    boundaries, and by the corners of the unit cube) and the march's valid
+    mask over them."""
     from myc_nerfs_tpu_torch.cli import run_net
     from myc_nerfs_tpu_torch.core.config import load_config
     from myc_nerfs_tpu_torch.geom import rays as rays_lib
@@ -333,7 +372,28 @@ def encode_inputs():
     pos[:edges.shape[0]] = edges
     tables = [torch.rand(t.shape, device="cuda", generator=gen) * 2 - 1
               for t in model.tables]
-    return model, tables, pos, float(marched.valid.float().mean())
+    return model, tables, pos, marched.valid.reshape(-1)
+
+
+def encode_bwd_by_group(tables, pos, g, g_valid, geo, dtype) -> dict:
+    """The backward's device ms with g zero outside one level group's
+    columns, for g (``all``) and g zero off valid (``valid``), by group
+    name (L<first>-<last>)."""
+    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+
+    cfg, levels, groups = geo
+    F = cfg.n_features
+    parts = {"all": {}, "valid": {}}
+    for members in groups.groups:
+        name = f"L{members[0]}" + (f"-{members[-1]}" if len(members) > 1 else "")
+        cols = torch.zeros(cfg.out_dim, dtype=dtype, device=g.device)
+        for lv in members:
+            cols[lv * F:(lv + 1) * F] = 1
+        for key, gg in (("all", g), ("valid", g_valid)):
+            g_grp = gg * cols
+            parts[key][name] = graph_ms(
+                lambda: ge.brick_encode_backward(tables, pos, g_grp, *geo, dtype))
+    return parts
 
 
 def phase_kernel_encode():
@@ -344,7 +404,7 @@ def phase_kernel_encode():
     geo = (model.cfg.grid, model.levels, model.groups)
     shape = (f"Car {len(model.groups.groups)} groups L{model.levels.n_levels}"
              f"F{model.cfg.grid.n_features} rows={pos.shape[0]} (march, "
-             f"{valid:.3f} valid, + boundaries) tables=uniform+-1")
+             f"{valid.float().mean().item():.3f} valid, + boundaries) tables=uniform+-1")
     gen = torch.Generator(device="cuda").manual_seed(3)
     fwd, bwd = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -353,6 +413,7 @@ def phase_kernel_encode():
             ref = bg.paired_encode_reference(tables, pos, *geo, dtype)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            differ = int((out != ref).sum())
             tol = ge.FWD_TOL[dtype] * max(1.0, ref.float().abs().max().item())
             t_k = graph_ms(lambda: ge.brick_encode(tables, pos, *geo, dtype))
             t_c = median_ms(lambda: ge.brick_encode(tables, pos, *geo, dtype))
@@ -360,7 +421,8 @@ def phase_kernel_encode():
         work = ge.encode_work(tables, pos, *geo, dtype)
         ok = err <= tol and out.dtype == dtype and bool(torch.isfinite(out).all())
         print(f"kernel_encode: brick_encode {shape} {dtype_name(dtype)} "
-              f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'BREACH'} "
+              f"max_abs_err={err:.3e} tol={tol:.3e} differing={differ} of {out.numel()} "
+              f"{'ok' if ok else 'BREACH'} "
               f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
               f"library_ms=null", flush=True)
         if not ok:
@@ -377,6 +439,8 @@ def phase_kernel_encode():
             ok &= e <= tol and a.shape == b.shape
             worst = max(worst, e)
         b_k = graph_ms(lambda: ge.brick_encode_backward(tables, pos, g, *geo, dtype))
+        g_valid = g * valid[:, None].to(dtype)  # the train step's pattern
+        b_m = graph_ms(lambda: ge.brick_encode_backward(tables, pos, g_valid, *geo, dtype))
         b_c = median_ms(lambda: ge.brick_encode_backward(tables, pos, g, *geo, dtype))
         b_p = graph_ms(lambda: bg.paired_encode_backward_reference(tables, pos, g, *geo,
                                                                    dtype))
@@ -385,15 +449,22 @@ def phase_kernel_encode():
               f"max_abs_err/tol {' '.join(errs)} (tol {ge.BWD_TOL:g} of each table "
               f"gradient's scale: the same contributions, added by f32 atomics "
               f"in no fixed order) {'ok' if ok else 'BREACH'} {bound_fields(b_k, b_work)} "
+              f"ms_masked={b_m:.4f} (g zero off the {int(valid.sum())} valid samples) "
               f"call_ms={b_c:.4f} plain_ms={b_p:.4f} library_ms=null", flush=True)
         if not ok:
             fail(f"brick_encode_backward {dtype}: {errs}")
         if dtype == torch.bfloat16:  # the Car slice's dtype
+            parts = encode_bwd_by_group(tables, pos, g, g_valid, geo, dtype)
+            print(f"kernel_encode_bwd_groups: {dtype_name(dtype)} device ms with g zero "
+                  f"outside one group's columns; " + "; ".join(
+                      f"g={key}: " + " ".join(f"{n}={t:.4f}" for n, t in ts.items())
+                      + f" sum={sum(ts.values()):.4f}" for key, ts in parts.items()),
+                  flush=True)
             fwd = {"max_abs_err": err, "ms": t_k, "call_ms": t_c, "plain_ms": t_p,
                    "library_ms": None,
                    "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
-            bwd = {"max_abs_err": worst, "ms": b_k, "call_ms": b_c, "plain_ms": b_p,
-                   "library_ms": None,
+            bwd = {"max_abs_err": worst, "ms": b_k, "ms_masked": b_m, "call_ms": b_c,
+                   "plain_ms": b_p, "library_ms": None,
                    "bound_ms": b_work["bound_ms"], "bound_by": b_work["bound_by"]}
     return fwd, bwd
 
@@ -647,35 +718,148 @@ def phase_train(card: str):
 
     # every parameter's gradient on one batch: the kernel path against the
     # plain path, and the encode kernels against the plain encode under the
-    # same MLP kernels; (encode kernel, MLP kernel) for each run
-    grads = {}
-    for encode, mlp in ((True, True), (False, False), (False, True)):
-        model.use_encode_kernel, model.net.use_fully = encode, mlp
-        with torch.enable_grad():
-            loss_t, _ = trainer.forward(rays_o, rays_d, target, bg, xi)
-            grads[encode, mlp] = trainer.backward(loss_t)
-    model.use_encode_kernel = model.net.use_fully = True
+    # same MLP kernels
+    batch = (rays_o, rays_d, target, bg, xi)
+    kern = train_gradients(trainer, batch, True, True)
+    plain, _ = train_gradients(trainer, batch, False, False)
+    split = encode_split(trainer, batch, kern)
     names = [f"table{i}" for i in range(len(model.tables))] + list(model.net.LAYERS)
-
-    def rel(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
-
-    full = {n: rel(a, b) for n, a, b in zip(names, grads[True, True], grads[False, False])}
-    enc = {n: rel(a, b) for n, a, b in zip(names, grads[True, True], grads[False, True])
-           if n.startswith("table")}
+    full = {n: rel(a, b) for n, a, b in zip(names, kern[0], plain)}
     ok = all(v <= (TABLE_E2E_REL_TOL if n.startswith("table") else GRAD_REL_TOL)
              for n, v in full.items())
-    ok &= all(v <= TABLE_GRAD_REL_TOL for v in enc.values())
+    ok &= split_ok(split)
     print("train: gradient kernels vs plain path (encode and MLP), |a-b|/|b|: "
           + " ".join(f"{n}={v:.2e}" for n, v in full.items())
           + f" tol tables={TABLE_E2E_REL_TOL:.2e} mlp={GRAD_REL_TOL:.2e}; tables, "
           f"encode kernels vs plain encode under the MLP kernels: "
-          + " ".join(f"{n}={v:.2e}" for n, v in enc.items())
-          + f" tol {TABLE_GRAD_REL_TOL:.2e}", flush=True)
+          + " ".join(f"table{i}={v:.2e}" for i, v in enumerate(split["tables"]))
+          + f" tol {TABLE_GRAD_REL_TOL:.2e}; {split_fields(split)}", flush=True)
     if not ok:
         fail("kernel and plain path gradients disagree")
 
     return launches, (trainer, tcfg, data, gen)
+
+
+def rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def train_gradients(trainer, batch, encode: bool, mlp: bool):
+    """One batch's loss gradients (every parameter) through the encode
+    kernels (or the plain encode) and the MLP kernels (or the plain MLP),
+    and what the encode saw: its positions, its output and the output's
+    gradient."""
+    model = trainer.model
+    seen = {}
+    encode_fn = model.encode
+
+    def recorded(positions):
+        out = encode_fn(positions)
+        seen.update(pos=positions.detach().reshape(-1, 3).contiguous(),
+                    out=out.detach().reshape(-1, out.shape[-1]))
+        out.register_hook(lambda g: seen.update(g=g.reshape(-1, g.shape[-1]).contiguous()))
+        return out
+
+    model.use_encode_kernel, model.net.use_fully = encode, mlp
+    model.encode = recorded
+    try:
+        with torch.enable_grad():
+            loss, _ = trainer.forward(*batch)
+            grads = trainer.backward(loss)
+    finally:
+        del model.encode  # the class's method again
+        model.use_encode_kernel = model.net.use_fully = True
+    return grads, seen
+
+
+def encode_split(trainer, batch, kernels=None) -> dict:
+    """The encode kernels against the plain encode in one batch's gradients,
+    both under the MLP kernels (``kernels``: train_gradients' result for the
+    kernel path, when it was already taken): each table's gradient through
+    the two (``tables``, |a-b|/|b|); the backward kernel alone against its
+    plain version on the kernel path's positions and output gradient
+    (``bwd``); and how many elements of the encode's output, and of its
+    gradient, differ between the two paths bit for bit (``out_differ``,
+    ``g_differ``; of ``n`` each; ``same_pos``: the march placed the same
+    positions)."""
+    from myc_nerfs_tpu_torch.ops import brick_grid as bg
+    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+
+    model = trainer.model
+    k_grads, k = kernels or train_gradients(trainer, batch, True, True)
+    p_grads, p = train_gradients(trainer, batch, False, True)
+    n_tables = len(model.tables)
+    geo = (model.cfg.grid, model.levels, model.groups, model.compute_dtype)
+    tables = [t.detach() for t in model.tables]
+    with torch.no_grad():
+        alone = ge.brick_encode_backward(tables, k["pos"], k["g"], *geo)
+        ref = bg.paired_encode_backward_reference(tables, k["pos"], k["g"], *geo)
+    return {"tables": [rel(a, b) for a, b in zip(k_grads[:n_tables], p_grads[:n_tables])],
+            "bwd": [rel(a, b) for a, b in zip(alone, ref)],
+            "out_differ": int((k["out"] != p["out"]).sum()),
+            "g_differ": int((k["g"] != p["g"]).sum()),
+            "n": k["out"].numel(), "same_pos": torch.equal(k["pos"], p["pos"])}
+
+
+def split_ok(split: dict) -> bool:
+    return all(v <= TABLE_GRAD_REL_TOL for v in split["tables"] + split["bwd"])
+
+
+def split_fields(split: dict) -> str:
+    return ("backward kernel alone vs plain on the kernel path's output gradient: "
+            + " ".join(f"table{i}={v:.2e}" for i, v in enumerate(split["bwd"]))
+            + f"; encode outputs differing bit for bit {split['out_differ']} of "
+            f"{split['n']}, their gradients {split['g_differ']}, same positions "
+            f"{split['same_pos']}")
+
+
+def phase_split(card: str, train_ctx) -> None:
+    """The train phase's encode split at many trained states: the same
+    config trained again (seed 1) through run_net.train_loop, checked after
+    each of its 16 blocks on SPLIT_BATCHES fresh batches. Fails, after every
+    state is printed, where a table breaches TABLE_GRAD_REL_TOL."""
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.core.config import load_config
+    from myc_nerfs_tpu_torch.data.blender import RayBatcher
+
+    _, _, data, _ = train_ctx
+    cfg = load_config("configs/ngp/Car.py")
+    cfg.update(synthetic=True, synthetic_views=TRAIN_VIEWS, synthetic_size=TRAIN_SIZE)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xi_gen = torch.Generator(device="cuda").manual_seed(2)
+    trainer, tcfg = run_net.build_trainer(cfg, gen, device="cuda")
+    train_block, results = trainer.train_block, []
+
+    def checked_block(*a, **k):
+        m = train_block(*a, **k)
+        for b in range(SPLIT_BATCHES):
+            seed = 1000 * len(results) + b
+            img_ids, pix_ids = RayBatcher(data.n_images, data.n_pixels,
+                                          trainer.n_rays_per_batch, seed=seed).next()
+            rays_o, rays_d = (torch.from_numpy(x).cuda()
+                              for x in data.rays_for_pixels(img_ids, pix_ids))
+            target = torch.from_numpy(data.pixel_values(img_ids, pix_ids)).cuda()
+            xi = torch.rand((rays_o.shape[0], 1), device="cuda", generator=xi_gen)
+            split = encode_split(trainer, (rays_o, rays_d, target,
+                                           torch.ones_like(target), xi))
+            results.append(split)
+            print(f"split: step {trainer.state.step} batch {b} rays {rays_o.shape[0]}: "
+                  f"tables, encode kernels vs plain encode: "
+                  + " ".join(f"{v:.2e}" for v in split["tables"])
+                  + "; " + split_fields(split), flush=True)
+        return m
+
+    trainer.train_block = checked_block
+    run_net.train_loop(trainer, tcfg, data, TRAIN_STEPS, gen, log=lambda msg: None)
+    bad = [i for i, s in enumerate(results) if not split_ok(s)]
+    print(f"split: {len(results)} checks at {len(results) // SPLIT_BATCHES} trained states; "
+          f"tables max {max(max(s['tables']) for s in results):.2e}, backward alone max "
+          f"{max(max(s['bwd']) for s in results):.2e} (tol {TABLE_GRAD_REL_TOL:.2e}); "
+          f"checks with encode outputs differing "
+          f"{sum(s['out_differ'] > 0 for s in results)}, breaching {len(bad)} [{card}]",
+          flush=True)
+    if bad:
+        fail(f"encode kernels vs plain encode breach {TABLE_GRAD_REL_TOL} at checks {bad}")
 
 
 def phase_profile(card: str, train_ctx) -> None:
@@ -764,6 +948,7 @@ def main() -> None:
     grid, render = phase_slice(smi)
     train, train_ctx = phase_train(smi)
     phase_profile(smi, train_ctx)
+    phase_split(smi, train_ctx)
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         if name in probe:

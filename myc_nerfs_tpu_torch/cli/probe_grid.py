@@ -15,14 +15,13 @@ random samples, in Mrows/s, where a row is one (sample, group).
 Prints one JSON line per probe: {"probe": ..., "ms": ..., "plain_ms": ...,
 "mrows_per_s": ..., "correct": ...} and the shapes. Each kernel is checked
 against its plain PyTorch version on the same inputs. Times are device
-milliseconds of one call (utils.timing.graph_ms), except the shared-memory
-scratch's; ``call_ms`` is one call timed from the host with CUDA events
-(utils.timing.median_ms, host time included), the scratch's only time. The rate records also
-carry ``library_ms``, one PyTorch call that computes the same function
-(``index_select``, ``torch.gather``, ``index_add_``; none for the encode),
-and ``bound_ms``/``bound_by``, the H100 bound of the bytes the function must
-move (utils.timing.roofline). Needs a CUDA device; without one it exits
-non-zero and prints no probe.
+milliseconds of one call (utils.timing.graph_ms); ``call_ms`` is one call
+timed from the host with CUDA events (utils.timing.median_ms, host time
+included). The rate records also carry ``library_ms``, one PyTorch call
+that computes the same function (``index_select``, ``torch.gather``,
+``index_add_``; none for the encode), and ``bound_ms``/``bound_by``, the
+H100 bound of the bytes the function must move (utils.timing.roofline).
+Needs a CUDA device; without one it exits non-zero and prints no probe.
 """
 from __future__ import annotations
 
@@ -139,11 +138,12 @@ def _probe_lanes(dev, gen, emit) -> None:
 def _probe_scratch(dev, emit) -> None:
     for kb in SCRATCH_KB:
         err = _err(gp.smem_scratch(kb * 1024, dev), gp.smem_scratch_reference(kb * 1024, dev))
-        ms = median_ms(lambda: gp.smem_scratch(kb * 1024, dev))
-        plain = median_ms(lambda: gp.smem_scratch_reference(kb * 1024, dev))
+        ms = graph_ms(lambda: gp.smem_scratch(kb * 1024, dev))
+        call = median_ms(lambda: gp.smem_scratch(kb * 1024, dev))
+        plain = graph_ms(lambda: gp.smem_scratch_reference(kb * 1024, dev))
         # its output, one float, is all it must write to device memory
         bound = roofline(0, 4)
-        emit(f"smem_scratch_{kb}KB", bytes=kb * 1024, ms=ms, call_ms=ms, plain_ms=plain,
+        emit(f"smem_scratch_{kb}KB", bytes=kb * 1024, ms=ms, call_ms=call, plain_ms=plain,
              library_ms=None, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
              max_abs_err=err, correct=err == 0.0)
     try:

@@ -142,14 +142,25 @@ extern "C" int scatter_add_rows(const int* idx, const float* val, float* out, lo
 
 // out [1] f32; bytes a multiple of 512 (one 128-float row). A size above
 // what a block may have is refused by cudaFuncSetAttribute: its error is
-// returned, and cleared so that it does not surface at a later launch.
+// returned, and cleared so that it does not surface at a later launch. The
+// attribute is set only when a size above the largest granted so far on this
+// device is asked for, so that repeated launches (a CUDA graph's capture
+// among them) make no other call than the launch.
 extern "C" int smem_scratch(float* out, long long bytes, void* stream) {
+  constexpr int kMaxDevices = 64;
+  static int granted[kMaxDevices] = {};
   if (bytes < 512 || bytes % 512 != 0 || bytes > INT_MAX) return -1;
-  cudaError_t err = cudaFuncSetAttribute(
-      smem_scratch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return int(err);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= kMaxDevices) return err != cudaSuccess ? int(err) : -1;
+  if (bytes > granted[dev]) {
+    err = cudaFuncSetAttribute(smem_scratch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(bytes));
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return int(err);
+    }
+    granted[dev] = int(bytes);
   }
   smem_scratch_kernel<<<1, kScratchThreads, size_t(bytes), static_cast<cudaStream_t>(stream)>>>(
       out, int(bytes / 512));

@@ -216,6 +216,11 @@ def paired_encode_reference(tables: List[torch.Tensor], positions: torch.Tensor,
     stay f32, like the JAX package's bf16 path: table values, weights and
     each product are rounded to bf16, the 8 products are summed in f32 (in
     f64 for f64 tables).
+
+    The 8 products are summed in corner order, ((p0 + p1) + p2) + ... + p7,
+    as the kernel sums them: an f32 sum of products that span more than 24
+    bits is rounded, so another order (torch's ``sum`` leaves its own
+    unstated) can move the bf16 output by one ulp.
     """
     levels = levels or compute_brick_levels(cfg)
     groups = groups or compute_level_groups(levels)
@@ -225,11 +230,14 @@ def paired_encode_reference(tables: List[torch.Tensor], positions: torch.Tensor,
     wdtype = compute_dtype or tables[0].dtype
     acc = torch.promote_types(wdtype, torch.float32)  # f64 for gradcheck
     per_level: List[Optional[torch.Tensor]] = [None] * levels.n_levels
+    feature = ROW_VERTS * torch.arange(F, device=pos.device)[:, None]
     for g, lv, base, w in _level_taps(pos, cfg, levels, groups, wdtype):
         flat = tables[g].reshape(-1)
-        feats = [(flat[base + f * ROW_VERTS].to(wdtype) * w)
-                 .sum(-1, dtype=acc).to(wdtype) for f in range(F)]
-        per_level[lv] = torch.stack(feats, dim=-1)
+        prod = (flat[base[:, None, :] + feature].to(wdtype) * w[:, None, :]).to(acc)
+        total = prod[..., 0]
+        for c in range(1, 8):
+            total = total + prod[..., c]
+        per_level[lv] = total.to(wdtype)
     out = torch.cat(per_level, dim=-1)
     return out.reshape(shape + (cfg.out_dim,))
 

@@ -13,8 +13,8 @@
 The forward saves only the positions (and references to the tables, for
 their shapes); the backward recomputes each sample's rows and weights. No
 gradient flows to the positions, as with the JAX package's stop_pos_grad.
-The backward's atomics add in no fixed order, so its result may differ
-from run to run in the last bits.
+The backward's reductions (warp sums, then f32 atomic adds) add in no
+fixed order, so its result may differ from run to run in the last bits.
 """
 from __future__ import annotations
 
@@ -35,11 +35,11 @@ FEATURES = (1, 2, 4, 8)
 MAX_LEVELS = 32
 MAX_GROUPS = 32
 # Kernel against plain version, as a fraction of the plain output's (or each
-# table gradient's) scale: f32 forward 1e-6 (the same rounded products,
-# 8-term sums in another order); bf16 forward 2^-7 (two bf16 ulps: that f32
-# sum may round to bf16 on the other side of a rounding boundary); the
-# backward 1e-5 (the same contributions, summed by f32 atomics in no fixed
-# order).
+# table gradient's) scale: f32 forward 1e-6, bf16 forward 2^-7 (two bf16
+# ulps; both sum the same rounded products in the same corner order, so
+# they agree bit for bit wherever they pick the same cell); the backward
+# 1e-5 (the same contributions, summed by warp shuffles and f32 atomic adds
+# in no fixed order).
 FWD_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
 BWD_TOL = 1e-5
 
@@ -182,7 +182,7 @@ def brick_encode_backward(tables: Sequence[torch.Tensor], positions: torch.Tenso
     """The tables' gradients (f32, shaped as the tables) for the output
     gradient grad_out [N, n_levels * F]. CPU tensors take
     paired_encode_backward_reference; CUDA tensors launch the backward
-    kernel (f32 atomics into zeroed gradients) or raise. Only the tables'
+    kernel (f32 atomic adds into zeroed gradients) or raise. Only the tables'
     shapes and device are read."""
     if positions.device.type == "cpu":
         return bg.paired_encode_backward_reference(list(tables), positions, grad_out,

@@ -18,12 +18,25 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 # the demo grid (dense levels, a 3-level hashed group), the Car grid (4
-# dense levels, four 3-level hashed groups, 2^19) and a 4-feature grid with
-# 2-level groups
+# dense levels, four 3-level hashed groups, 2^19), a 4-feature grid with
+# 2-level groups (its levels fill no whole 32-byte chunk of the forward), a
+# 5-level grid (its rows are no whole number of 16-byte vectors), and the
+# Car geometry at F = 1, 4 and 8
+CAR = dict(n_levels=16, log2_hashmap_size=19, aabb_scale=4)
 GRIDS = {"demo": (dict(n_levels=8, log2_hashmap_size=15, desired_resolution=256.0), 3),
-         "car": (dict(n_levels=16, log2_hashmap_size=19, aabb_scale=4), 3),
+         "car": (CAR, 3),
          "f4": (dict(n_levels=6, n_features=4, log2_hashmap_size=12,
-                     desired_resolution=128.0), 2)}
+                     desired_resolution=128.0), 2),
+         "l5": (dict(n_levels=5, log2_hashmap_size=12, desired_resolution=64.0), 2),
+         "car_f1": (dict(CAR, n_features=1), 3),
+         "car_f4": (dict(CAR, n_features=4), 3),
+         "car_f8": (dict(CAR, n_features=8), 3)}
+# sample orders: uniform random (with cell and brick boundaries first); rays
+# of 64 samples along a line, the march's order, so that neighbouring lanes
+# share cells; the same with the first ray's 64 samples on one point; the
+# same with the first 128 samples (a whole tile) on one point
+LAYOUTS = ("uniform", "rays", "ray_on_point", "tile_on_point")
+N_SAMPLES = [1, 63, 1000, 70001]  # 70001: a ragged last tile
 
 
 @pytest.fixture()
@@ -33,34 +46,60 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _setup(grid, n, device, seed=0):
-    """Geometry, uniform +-1 tables and positions: uniform in [-0.1, 1.1]^3,
-    the first of them on cell and brick boundaries of every level and on
-    the corners of the unit cube."""
+def _positions(levels, n, rng, layout):
+    if layout == "uniform":
+        pos = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+        edges = [np.indices((2, 2, 2)).reshape(3, -1).T.astype(np.float32)]
+        for s in levels.scales:
+            k = rng.integers(0, int(np.ceil(s)) + 2, (64, 3))
+            k[::2] -= k[::2] % 4
+            edges.append((k.astype(np.float32) - np.float32(0.5)) / np.float32(s))
+        edges = np.concatenate(edges)[:n]
+        pos[:len(edges)] = edges
+        return pos
+    rays = -(-n // 64)
+    origin = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.standard_normal((rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.35, (rays, 64, 1)), axis=1)
+    pos = (origin + t * d).reshape(-1, 3)[:n].astype(np.float32)
+    if layout == "ray_on_point":
+        pos[:64] = pos[0]
+    elif layout == "tile_on_point":
+        pos[:128] = pos[0]
+    return pos
+
+
+def _setup(grid, n, device, seed=0, layout="uniform"):
+    """Geometry, uniform +-1 tables and n positions in the given layout."""
     kw, group_size = GRIDS[grid]
     cfg = ngp.HashGridConfig(**kw)
     levels = bg.compute_brick_levels(cfg)
     groups = bg.compute_level_groups(levels, group_size=group_size)
-    rng = np.random.default_rng(seed)
-    tables = [torch.from_numpy(rng.uniform(-1, 1, (levels.n_bricks[m[-1]],
-                                                   len(m) * cfg.n_features * 128))
-                               .astype(np.float32)).to(device) for m in groups.groups]
-    pos = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
-    edges = [np.indices((2, 2, 2)).reshape(3, -1).T.astype(np.float32)]
-    for s in levels.scales:
-        k = rng.integers(0, int(np.ceil(s)) + 2, (64, 3))
-        k[::2] -= k[::2] % 4
-        edges.append((k.astype(np.float32) - np.float32(0.5)) / np.float32(s))
-    edges = np.concatenate(edges)[:n]
-    pos[:len(edges)] = edges
+    gen = torch.Generator(device).manual_seed(seed)
+    tables = [torch.rand((levels.n_bricks[m[-1]], len(m) * cfg.n_features * 128),
+                         device=device, generator=gen) * 2 - 1 for m in groups.groups]
+    pos = _positions(levels, n, np.random.default_rng(seed), layout)
     return cfg, levels, groups, tables, torch.from_numpy(pos).to(device)
 
 
+def _assert_table_grads(grads, refs, tables):
+    """Kernel against plain table gradients: the same NaNs, and elsewhere
+    BWD_TOL of each finite reference's scale."""
+    for a, b, t in zip(grads, refs, tables):
+        assert a.dtype == torch.float32 and a.shape == t.shape
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        fin = torch.isfinite(b)
+        scale = b[fin].abs().max().item() if fin.any() else 0.0
+        assert (a[fin] - b[fin]).abs().max().item() <= ge.BWD_TOL * scale
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("grid", list(GRIDS))
-@pytest.mark.parametrize("n", [1, 63, 1000, 70001])
-def test_brick_encode_matches_plain(cuda_device, grid, dtype, n):
-    cfg, levels, groups, tables, pos = _setup(grid, n, cuda_device)
+@pytest.mark.parametrize("n", N_SAMPLES)
+def test_brick_encode_matches_plain(cuda_device, grid, dtype, n, layout):
+    cfg, levels, groups, tables, pos = _setup(grid, n, cuda_device, layout=layout)
     before = ge.brick_encode.launches
     with torch.no_grad():
         out = ge.brick_encode(tables, pos, cfg, levels, groups, dtype)
@@ -72,33 +111,45 @@ def test_brick_encode_matches_plain(cuda_device, grid, dtype, n):
     assert (out.float() - ref.float()).abs().max().item() <= ge.FWD_TOL[dtype] * scale
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("grid", list(GRIDS))
-@pytest.mark.parametrize("n", [1, 63, 1000, 70001])
-def test_brick_encode_backward_matches_plain(cuda_device, grid, dtype, n):
-    cfg, levels, groups, tables, pos = _setup(grid, n, cuda_device, seed=1)
+@pytest.mark.parametrize("n", N_SAMPLES)
+def test_brick_encode_backward_matches_plain(cuda_device, grid, dtype, n, layout):
+    """Zero gradients skip their contributions, also where they share a cell
+    (a warp's match group) with lanes that add: whole rows, and the first
+    level alone on others."""
+    cfg, levels, groups, tables, pos = _setup(grid, n, cuda_device, seed=1, layout=layout)
     g = torch.randn((n, cfg.out_dim), device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(2)).to(dtype)
-    g[::7] = 0.0  # skipped contributions
+    g[::7] = 0.0
+    g[2::5, :cfg.n_features] = 0.0
     before = ge.brick_encode_backward.launches
     grads = ge.brick_encode_backward(tables, pos, g, cfg, levels, groups, dtype)
     refs = bg.paired_encode_backward_reference(tables, pos, g, cfg, levels, groups, dtype)
     torch.cuda.synchronize()
     assert ge.brick_encode_backward.launches == before + 1
-    for a, b, t in zip(grads, refs, tables):
-        assert a.dtype == torch.float32 and a.shape == t.shape
-        assert (a - b).abs().max().item() <= ge.BWD_TOL * b.abs().max().item()
+    _assert_table_grads(grads, refs, tables)
 
 
-def test_brick_encode_backward_passes_non_finite_gradients(cuda_device):
+@pytest.mark.parametrize("layout", ["uniform", "tile_on_point"])
+@pytest.mark.parametrize("grid", ["demo", "car"])
+def test_brick_encode_backward_passes_non_finite_gradients(cuda_device, grid, layout):
     """Only an exact 0 is skipped: a NaN output gradient reaches the table
-    (the trainer's skip_nonfinite must see it)."""
-    cfg, levels, groups, tables, pos = _setup("demo", 10, cuda_device)
-    g = torch.zeros((10, cfg.out_dim), device=cuda_device)
-    g[3, 0] = float("nan")
+    (the trainer's skip_nonfinite must see it), also from inside a group of
+    lanes on one cell whose other gradients are finite or zero."""
+    n = 300
+    cfg, levels, groups, tables, pos = _setup(grid, n, cuda_device, layout=layout)
+    g = torch.randn((n, cfg.out_dim), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    g[:, cfg.n_features:] = 0.0   # only the first level (group 0) adds
+    g[::4] = 0.0
+    g[5, 0] = float("nan")
     grads = ge.brick_encode_backward(tables, pos, g, cfg, levels, groups)
+    refs = bg.paired_encode_backward_reference(tables, pos, g, cfg, levels, groups)
     assert torch.isnan(grads[0]).any()
     assert all(torch.isfinite(t).all() for t in grads[1:])
+    _assert_table_grads(grads, refs, tables)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

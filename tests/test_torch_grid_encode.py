@@ -257,3 +257,30 @@ def test_encode_work_counts_what_the_positions_touch():
     assert bwd["bytes"] == n * 3 * 4 + n * L * F * 2 + 4 * sum(t.numel() for t in tables)
     assert fwd["flops"] == bwd["flops"] == n * L * 8 * (2 * F + 2)
     assert fwd["bound_by"] == bwd["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reference_sums_the_corners_in_order(dtype):
+    """paired_encode_reference sums each level's 8 rounded products in
+    corner order in f32, as the kernels do, so that the two agree bit for
+    bit: with table values over 40 binades the f32 sums round, and a
+    pairwise order gives other sums."""
+    _, (cfg, levels, groups), tables, pos = _setup(2, 1000, seed=5)
+    rng = np.random.default_rng(6)
+    tables = [(t * np.exp2(rng.uniform(-40, 0, t.shape))).astype(np.float32) for t in tables]
+    ts = [torch.from_numpy(t) for t in tables]
+    out = tbg.paired_encode_reference(ts, torch.from_numpy(pos), cfg, levels, groups,
+                                      compute_dtype=dtype)
+    F, reordered = cfg.n_features, 0
+    for g, lv, base, w in tbg._level_taps(torch.from_numpy(pos), cfg, levels, groups, dtype):
+        for f in range(F):
+            p = (ts[g].reshape(-1)[base + f * 128].to(dtype) * w).float().numpy()
+            seq = p[:, 0]
+            for c in range(1, 8):
+                seq = seq + p[:, c]
+            pairs = ((p[:, 0] + p[:, 1]) + (p[:, 2] + p[:, 3])) + \
+                    ((p[:, 4] + p[:, 5]) + (p[:, 6] + p[:, 7]))
+            reordered += int((pairs != seq).sum())
+            want = torch.from_numpy(seq).to(dtype)
+            assert torch.equal(out[:, lv * F + f], want), (lv, f)
+    assert reordered > 0
