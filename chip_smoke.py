@@ -61,10 +61,49 @@ Phases, each ending in one line (a failure exits non-zero):
 9. profile (after every counted and timed run, so that no profiler window
    precedes them): one render chunk stage by stage, one 800x800 frame and
    one train block at 4096 rays under torch.profiler, with the device's
-   busy share of the wall time (utils/profiling.py).
+   busy share of the wall time (utils/profiling.py); the wide fused-MLP
+   backward by kernel and one train block of the fused flagship (phase 13).
 10. split: phase 8's encode comparison at many trained states: the config
    trained again from another seed, checked after each of its 16 blocks on
    two batches; one line per check and a summary.
+11. kernel_wide / kernel_wide_bwd (after phase 4): the wide fused-MLP
+   kernels on OriginNeRF's fused backbone chain [64, 257 x 8] (the
+   wrapper pads it to [64, 272 x 8]) at 131072 rows (4096 rays x 32
+   samples), bf16 and f32, with the times of phase 3; bound_ms counts the
+   257-wide chain the function computes (not the padding), and library_ms
+   is the faster cuBLAS chain of the 257-wide and the padded inputs (both
+   printed). The forward holds random inputs to TOL. The backward holds
+   integer inputs on which every sum is exact (ops/cuda/fused_mlp.py::
+   exact_inputs at 16384 rows, where the magnitudes summed into any
+   element stay below 2^24, which is checked; any order gives the same
+   bits, so dx and every dW must be equal), and random inputs: f32 to
+   BWD_TOL, bf16 by the norm of the error (a pre-activation within a
+   rounding of 0 flips the ReLU mask between two summation orders); it
+   must give the same bits twice. In bf16 two planted faults of the
+   backward, computed by the plain backward with the fault (dW from the
+   gradient rounded to bf16, i.e. no lo term; the dgrad product on the
+   unrounded gradient), are read against both checks: the exact check
+   must see each of them (the run fails if a fault gives the reference's
+   bits), and their norm error on random inputs is printed beside
+   WIDE_BWD_NORM_TOL.
+12. nerf_train (after phase 8): run_net.build_trainer on
+   configs/nerf/budget_synthetic.py as the file gives it (OriginNeRF,
+   skips (4,), bf16, lr 1e-3, n_coarse 128, n_compact 32, 4096 rays) on
+   the detail scene cut to 12 views at 128x128, 256 steps through
+   run_net.train_loop, which saves model.ckpt with the port's msgpack
+   codec; the train PSNR must rise, and a fresh trainer restores params,
+   Adam state, grid and step bit for bit.
+13. flagship_fused: OriginNeRFModel(skips=(), bf16, use_fused) at D=8,
+   W=256 through NGPTrainer(model=) on the same scene, 128 steps: the wide
+   kernels must run, the PSNR rise, the params stay finite; on
+   FLAGSHIP_GRAD_SEEDS batches every parameter's gradient through the
+   kernels against the gradient through the plain versions on the card
+   (the model's mlp seam: fused_mlp_plain), and the planted faults of
+   phase 11 read against the same limit; one held-out 128x128 view
+   rendered through the fused path.
+14. hash_march: the non-fused path (grid_impl 'hash', fused_march=False,
+   compact_source 'network') trained 64 steps on the blobs scene; the
+   PSNR must rise.
 Then a JSON line describing each kernel (for the fused MLP and encode
 kernels its numbers are the bf16 ones, the Car slice's dtype, summed over
 the shapes; ``ms`` is graph_ms, ``call_ms`` median_ms), and last the
@@ -125,7 +164,44 @@ TABLE_E2E_REL_TOL = 3e-3
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
 BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
 SPLIT_BATCHES = 2                        # batches checked at each state (phase 10)
-SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel")
+SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel",
+                "fused_mlp_wide_bf16_kernel", "fused_mlp_wide_dw_bf16_kernel")
+# OriginNeRF's fused backbone: 64 -> 257 x 8 with the biases folded in, at
+# the flagship's train step (4096 rays x n_compact 32)
+WIDE_CHAIN = (64,) + (257,) * 8
+WIDE_ROWS = 131072
+# the exact-input check's rows: at 16384 rows the magnitudes summed into
+# one element stay below 2^24 (4.3e6 for this draw on the CPU), so every
+# order sums exactly; at 131072 they do not (4.0e7)
+WIDE_EXACT_ROWS = 16384
+EXACT_LIMIT = 2.0 ** 24
+# random bf16 inputs, backward: |a - b| / |b| over each tensor. The ReLU
+# masks of two summation orders differ where a pre-activation lies within a
+# rounding of 0, and a flipped mask moves that row's gradient by a whole
+# term (chip runs on an H100 read dx 7.6e-3, dW 8.7e-3). The planted
+# faults below read 2.8e-3 to 5.1e-3 here, under the limit: this check
+# cannot see them, the exact-input check (elements differing) does
+WIDE_BWD_NORM_TOL = 2.0 ** -5
+# planted faults of the bf16 backward (planted_backward)
+FAULTS = ("no_lo", "unrounded_g")
+NERF_VIEWS, NERF_SIZE, NERF_STEPS, FLAGSHIP_STEPS, HASH_STEPS = 12, 128, 256, 128, 64
+# the train PSNR of the last block must beat the first block's by this much
+# (dB), half, rounded down, of the first chip run's rise on an H100 80GB
+# HBM3 at 700 W: nerf_train 11.44 -> 16.62, flagship_fused 11.30 -> 12.15
+# in its 128 steps, hash_march 11.91 -> 12.78 in its 64 (the vertex hash
+# at lr 1e-2 learns slowly at first). These phases show that training
+# moves; cli/quality_scale.py measures quality
+NERF_PSNR_RISE = 2.5
+FLAGSHIP_PSNR_RISE = 0.4
+HASH_PSNR_RISE = 0.4
+# flagship gradient, kernels vs plain versions on the card: |a-b|/|b| per
+# parameter, for the mask flips above through 8 layers, on this many
+# batches. A run on an H100 80GB HBM3 at 700 W read 8.4e-4 to 1.42e-3 over
+# its 8 batches; the limit is ~4x the largest. The planted faults read
+# 5.5e-4 and 6.1e-4 there, inside the kernels' own spread: only phase 11's
+# exact check sees them
+FLAGSHIP_GRAD_SEEDS = 8
+FLAGSHIP_GRAD_TOL = 6e-3
 # the encode backward's instance on the Car path (F = 2, bf16), mangled
 ENCODE_BWD_SASS = "brick_encode_bwd_kernelILi2ELb1E"
 
@@ -147,6 +223,8 @@ def counters():
     from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
 
     return {"fused_mlp": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_backward,
+            "fused_mlp_wide": fm.fused_mlp_wide,
+            "fused_mlp_wide_bwd": fm.fused_mlp_wide_backward,
             "brick_encode": ge.brick_encode,
             "brick_encode_bwd": ge.brick_encode_backward,
             "gather_rows": gp.gather_rows, "gather_lanes": gp.gather_lanes,
@@ -862,12 +940,375 @@ def phase_split(card: str, train_ctx) -> None:
         fail(f"encode kernels vs plain encode breach {TABLE_GRAD_REL_TOL} at checks {bad}")
 
 
-def phase_profile(card: str, train_ctx) -> None:
+def planted_backward(x, weights, g, need_dx=True, fault=None, sums=None):
+    """fused_mlp_backward_reference (fault None: the same steps and bits)
+    with a fault planted, as a faulty kernel would compute it: 'no_lo'
+    forms dW from the gradient rounded to x's dtype (the kernel's lo term
+    dropped), 'unrounded_g' feeds the unrounded f32 gradient to the dgrad
+    product. ``sums`` collects, per layer, the largest sum of |post| |g|
+    over one dW element (below 2^24, integer inputs sum exactly)."""
+    acc = torch.float32
+    post = [x]
+    for w in weights[:-1]:
+        post.append(torch.relu(post[-1].to(acc) @ w.to(acc)).to(x.dtype))
+    g = g.to(x.dtype).to(acc)
+    dws = [None] * len(weights)
+    for i in range(len(weights) - 1, -1, -1):
+        g_dw = g.to(x.dtype).to(acc) if fault == "no_lo" else g
+        dws[i] = (post[i].to(acc).T @ g_dw).to(weights[i].dtype)
+        if sums is not None:
+            sums.append((post[i].double().T @ g.double().abs()).max().item())
+        if i == 0 and not need_dx:
+            return None, dws
+        g = (g if fault == "unrounded_g" else g.to(x.dtype).to(acc)) @ weights[i].to(acc).T
+        if i > 0:
+            g = g * (post[i].to(acc) > 0.0)
+    return g.to(x.dtype), dws
+
+
+def differing(a, b) -> int:
+    return int((a != b).sum().item())
+
+
+def phase_kernel_wide(fm) -> tuple:
+    """The wide fused-MLP kernels at OriginNeRF's chain (phase 11)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(4)
+    padded = fm.padded_widths(WIDE_CHAIN)
+    shape = (f"{'x'.join(map(str, WIDE_CHAIN))} (padded {'x'.join(map(str, padded))}) "
+             f"rows={WIDE_ROWS} tf32=off")
+    fwd, bwd = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.rand((WIDE_ROWS, WIDE_CHAIN[0]), device="cuda", generator=g).to(dtype)
+        ws = [(torch.randn((a, b), device="cuda", generator=g) / a ** 0.5).to(dtype)
+              for a, b in zip(WIDE_CHAIN[:-1], WIDE_CHAIN[1:])]
+        xp, wsp, _ = fm.pad_chain(x, ws)
+        with torch.no_grad():
+            y = fm.fused_mlp(x, ws)
+            ref = fm.fused_mlp_reference(x, ws)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = TOL[dtype](ref.float().abs().max().item())
+            t_k = graph_ms(lambda: fm.fused_mlp(x, ws))
+            t_c = median_ms(lambda: fm.fused_mlp(x, ws))
+            t_p = graph_ms(lambda: fm.fused_mlp_reference(x, ws))
+            # cuBLAS on 257-wide rows (514 bytes in bf16, not 16-byte
+            # aligned) and on the padded, aligned chain
+            t_l = graph_ms(lambda: library_chain(x, ws))
+            t_lp = graph_ms(lambda: library_chain(xp, wsp))
+        work = fm.mlp_work(WIDE_CHAIN, WIDE_ROWS, dtype)
+        ok = err <= tol and y.shape == ref.shape
+        print(f"kernel_wide: fused_mlp_wide {shape} {dtype_name(dtype)} "
+              f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'BREACH'} "
+              f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
+              f"library_ms={min(t_l, t_lp):.4f} (cuBLAS chain 257 wide {t_l:.4f}, "
+              f"padded to 272 {t_lp:.4f})", flush=True)
+        if not ok:
+            fail(f"fused_mlp_wide {dtype}: max abs err {err} > {tol}")
+        if dtype == torch.bfloat16:  # the flagship's dtype
+            fwd = {"max_abs_err": err, "ms": t_k, "call_ms": t_c, "plain_ms": t_p,
+                   "library_ms": min(t_l, t_lp), "library_unpadded_ms": t_l,
+                   "library_padded_ms": t_lp, "bound_ms": work["bound_ms"],
+                   "bound_by": work["bound_by"]}
+
+        # backward, exact inputs: the same bits, and each planted fault seen
+        xe, wse, ge_ = fm.exact_inputs(WIDE_CHAIN, WIDE_EXACT_ROWS, dtype, "cuda", seed=5)
+        dx, dws = fm.fused_mlp_backward(xe, wse, ge_)
+        dx_ref, dws_ref = fm.fused_mlp_backward_reference(xe, wse, ge_)
+        sums = []
+        dx_pl, dws_pl = planted_backward(xe, wse, ge_, sums=sums)
+        torch.cuda.synchronize()
+        exact_diff = [differing(dx, dx_ref)] + [differing(a, b) for a, b in zip(dws, dws_ref)]
+        exact_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip([dx] + dws, [dx_ref] + dws_ref))
+        plain_same = torch.equal(dx_pl, dx_ref) and all(map(torch.equal, dws_pl, dws_ref))
+        ok_exact = not any(exact_diff) and max(sums) < EXACT_LIMIT and plain_same
+        seen = {}
+        if dtype == torch.bfloat16:
+            for fault in FAULTS:
+                fdx, fdws = planted_backward(xe, wse, ge_, fault=fault)
+                seen[fault] = (differing(fdx, dx_ref),
+                               sum(differing(a, b) for a, b in zip(fdws, dws_ref)))
+        # random inputs: the norm of the error, and the same bits again
+        gy = torch.randn((WIDE_ROWS, WIDE_CHAIN[-1]), device="cuda", generator=g).to(dtype)
+        dx, dws = fm.fused_mlp_backward(x, ws, gy)
+        dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, gy)
+        dx2, dws2 = fm.fused_mlp_backward(x, ws, gy)
+        torch.cuda.synchronize()
+        same = torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
+        norm_errs = [rel(a, b) for a, b in zip([dx] + dws, [dx_ref] + dws_ref)]
+        max_errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip([dx] + dws, [dx_ref] + dws_ref)]
+        planted = {}
+        for fault in seen:
+            fdx, fdws = planted_backward(x, ws, gy, fault=fault)
+            planted[fault] = (rel(fdx, dx_ref), max(rel(a, b) for a, b in zip(fdws, dws_ref)))
+        del dx2, dws2
+        if dtype == torch.float32:
+            tol_dx, tol_dw = BWD_TOL[dtype]
+            ok_rand = all(e <= (tol_dx if i == 0 else tol_dw) * max(1.0, b.abs().max().item())
+                          for i, (e, b) in enumerate(zip(max_errs, [dx_ref] + dws_ref)))
+            rand_tol = f"max_abs dx {tol_dx:g} dW {tol_dw:g} of scale"
+        else:
+            ok_rand = max(norm_errs) <= WIDE_BWD_NORM_TOL
+            rand_tol = f"norm {WIDE_BWD_NORM_TOL:g}"
+        xl = x.clone().requires_grad_()
+        wl = [w.clone().requires_grad_() for w in ws]
+        xpl = xp.clone().requires_grad_()
+        wpl = [w.clone().requires_grad_() for w in wsp]
+        gyp = torch.nn.functional.pad(gy, (0, padded[-1] - WIDE_CHAIN[-1]))
+        b_k = graph_ms(lambda: fm.fused_mlp_backward(x, ws, gy))
+        b_c = median_ms(lambda: fm.fused_mlp_backward(x, ws, gy))
+        b_p = graph_ms(lambda: fm.fused_mlp_backward_reference(x, ws, gy))
+        b_l = graph_ms(lambda: torch.autograd.grad(library_chain(xl, wl), [xl] + wl, gy))
+        b_lp = graph_ms(lambda: torch.autograd.grad(library_chain(xpl, wpl), [xpl] + wpl, gyp))
+        b_work = fm.mlp_work(WIDE_CHAIN, WIDE_ROWS, dtype, backward=True)
+        unseen = [f for f, counts in seen.items() if not any(counts)]
+        ok = ok_exact and ok_rand and same and not unseen
+        print(f"kernel_wide_bwd: fused_mlp_wide_backward {shape} {dtype_name(dtype)} "
+              f"exact inputs ({WIDE_EXACT_ROWS} rows, largest sum of magnitudes "
+              f"{max(sums):.3e} < 2^24, plain steps equal={plain_same}): elements differing "
+              f"dx={exact_diff[0]} dW={sum(exact_diff[1:])} (tol 0); random inputs "
+              f"|a-b|/|b| dx={norm_errs[0]:.2e} dW max={max(norm_errs[1:]):.2e} max_abs "
+              f"dx={max_errs[0]:.3e} dW={max(max_errs[1:]):.3e} (tol {rand_tol}) "
+              f"deterministic={same} {'ok' if ok else 'BREACH'} {bound_fields(b_k, b_work)} "
+              f"call_ms={b_c:.4f} plain_ms={b_p:.4f} library_ms={min(b_l, b_lp):.4f} "
+              f"(cuBLAS chain + autograd.grad 257 wide {b_l:.4f}, padded to 272 "
+              f"{b_lp:.4f})", flush=True)
+        for fault in seen:
+            print(f"kernel_wide_bwd: planted fault {fault} (the plain backward with it): "
+                  f"exact inputs, elements differing from the reference dx={seen[fault][0]} "
+                  f"dW={seen[fault][1]} (the exact check sees it if either is above 0); "
+                  f"random inputs |a-b|/|b| dx={planted[fault][0]:.2e} "
+                  f"dW max={planted[fault][1]:.2e} against tol {WIDE_BWD_NORM_TOL:g}",
+                  flush=True)
+        if not ok:
+            fail(f"fused_mlp_wide_backward {dtype}: exact {exact_diff} (sums {max(sums)}, "
+                 f"plain steps equal {plain_same}) random {norm_errs} deterministic {same} "
+                 f"planted faults the exact check cannot see {unseen}")
+        if dtype == torch.bfloat16:
+            bwd = {"max_abs_err": exact_err, "max_abs_err_random": max(max_errs),
+                   "norm_err_random": max(norm_errs), "ms": b_k, "call_ms": b_c,
+                   "plain_ms": b_p, "library_ms": min(b_l, b_lp), "library_unpadded_ms": b_l,
+                   "library_padded_ms": b_lp, "bound_ms": b_work["bound_ms"],
+                   "bound_by": b_work["bound_by"]}
+    return fwd, bwd
+
+
+def block_psnr(hist):
+    return [m["psnr"].float().mean().item() for m in hist]
+
+
+def nerf_config():
+    """configs/nerf/budget_synthetic.py with the scene cut to NERF_VIEWS
+    views at NERF_SIZE^2 (and its 3 held-out views)."""
+    from myc_nerfs_tpu_torch.core.config import load_config
+
+    cfg = load_config("configs/nerf/budget_synthetic.py")
+    cfg.update(synthetic_views=NERF_VIEWS, synthetic_size=NERF_SIZE)
+    return cfg
+
+
+def phase_nerf_train(card: str):
+    """Phase 12: OriginNeRF through run_net, and its checkpoint."""
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.core.checkpoint import restore_checkpoint
+    from myc_nerfs_tpu_torch.models.ori_nerf import OriginNeRFModel
+
+    cfg = nerf_config()
+    data, h, w = run_net.load_data(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer, tcfg = run_net.build_trainer(cfg, gen, device="cuda")
+    model = trainer.model
+    if not (isinstance(model, OriginNeRFModel) and model.cfg.skips == (4,)
+            and model.cfg.D == 8 and model.cfg.W == 256 and model.cfg.use_bf16
+            and not model.cfg.use_fused and tcfg.lr == 1e-3 and trainer.rcfg.n_coarse == 128
+            and trainer.rcfg.n_compact == 32 and tcfg.n_rays_per_batch == 4096):
+        fail(f"budget_synthetic did not build as expected: {model.cfg} {tcfg} {trainer.rcfg}")
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        hist = run_net.train_loop(trainer, tcfg, data, NERF_STEPS, gen, cfg=cfg, out_dir=out,
+                                  H=h, W=w, log=lambda msg: None)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = read_launches()
+        ckpt = f"{out}/model.ckpt"
+        size_mb = Path(ckpt).stat().st_size / 2**20
+        fresh, _ = run_net.build_trainer(cfg, torch.Generator(device="cuda").manual_seed(9),
+                                         device="cuda")
+        t0 = time.perf_counter()
+        fresh.state, meta = restore_checkpoint(ckpt, fresh.state)
+        t_restore = time.perf_counter() - t0
+    a, b = fresh.state, trainer.state
+    same = (a.step == b.step == meta["step"] == NERF_STEPS
+            and all(torch.equal(x, y) and x.dtype == y.dtype
+                    for x, y in zip(fresh.model.param_list(), model.param_list()))
+            and torch.equal(a.opt_state.count, b.opt_state.count)
+            and all(torch.equal(x, y) for x, y in zip(a.opt_state.mu + a.opt_state.nu,
+                                                      b.opt_state.mu + b.opt_state.nu))
+            and all(torch.equal(x, y) for x, y in zip(a.occ, b.occ)))
+    bpsnr = block_psnr(hist)
+    skipped = sum(int((~m["finite"]).sum().item()) for m in hist)
+    finite = all(torch.isfinite(p).all().item() for p in model.param_list())
+    print(f"nerf_train: budget_synthetic OriginNeRF D=8 W=256 skips=(4,) bf16 lr=1e-3 "
+          f"n_coarse=128 n_compact=32 detail {NERF_VIEWS}x{NERF_SIZE}x{NERF_SIZE} "
+          f"steps={NERF_STEPS} s={t_train:.2f} psnr_first={bpsnr[0]:.3f} "
+          f"psnr_last={bpsnr[-1]:.3f} skipped={skipped} "
+          f"n_rays_per_batch={trainer.n_rays_per_batch} checkpoint {size_mb:.1f} MiB "
+          f"restored in {t_restore:.2f} s bit_for_bit={same} launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items() if v) + f" [{card}]", flush=True)
+    if not finite:
+        fail("OriginNeRF training produced a non-finite parameter")
+    if not bpsnr[-1] > bpsnr[0] + NERF_PSNR_RISE:
+        fail(f"OriginNeRF train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}")
+    if not same:
+        fail("the restored OriginNeRF trainer differs from the saved one")
+    return launches, (cfg, data)
+
+
+def phase_flagship_fused(card: str, nerf_ctx):
+    """Phase 13: the fused flagship through NGPTrainer(model=)."""
+    from functools import partial
+
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.data.blender import RayBatcher
+    from myc_nerfs_tpu_torch.models import ori_nerf
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+    from myc_nerfs_tpu_torch.train.ngp_trainer import NGPTrainer
+    from myc_nerfs_tpu_torch.utils.metrics import psnr
+
+    cfg, data = nerf_ctx
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base, tcfg = run_net.build_trainer(cfg, gen, device="cuda")
+    model = ori_nerf.OriginNeRFModel(ori_nerf.OriginNeRFConfig(skips=(), use_bf16=True,
+                                                               use_fused=True),
+                                     device="cuda", generator=gen)
+    trainer = NGPTrainer(None, base.rcfg, tcfg, gen, device="cuda", model=model)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = run_net.train_loop(trainer, tcfg, data, FLAGSHIP_STEPS, gen, log=lambda msg: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_launches()
+    bpsnr = block_psnr(hist)
+    finite = all(torch.isfinite(p).all().item() for p in model.param_list())
+
+    # every parameter's gradient through the kernels and through the plain
+    # versions (the model's mlp seam) on FLAGSHIP_GRAD_SEEDS batches, and
+    # through the planted faults of phase 11 on the first
+    def gradients(batch, mlp):
+        model.mlp = mlp
+        try:
+            with torch.enable_grad():
+                loss, _ = trainer.forward(*batch)
+                return trainer.backward(loss)
+        finally:
+            model.mlp = fm.fused_mlp
+
+    def errors(a, b):
+        return {f"{layer}/{kind}": rel(x, y) for (layer, kind), x, y in
+                zip(model.leaf_names(), a, b)}
+
+    readings, faults = [], {}
+    for seed in range(FLAGSHIP_GRAD_SEEDS):
+        img_ids, pix_ids = RayBatcher(data.n_images, data.n_pixels, 4096, seed=7 + seed).next()
+        rays_o, rays_d = (torch.from_numpy(a).cuda()
+                          for a in data.rays_for_pixels(img_ids, pix_ids))
+        target = torch.from_numpy(data.pixel_values(img_ids, pix_ids)).cuda()
+        xi = torch.rand((rays_o.shape[0], 1), device="cuda", generator=gen)
+        batch = (rays_o, rays_d, target, torch.ones_like(target), xi)
+        plain = gradients(batch, fm.fused_mlp_plain)
+        readings.append(errors(gradients(batch, fm.fused_mlp), plain))
+        if seed == 0:
+            for fault in FAULTS:
+                planted = partial(fm.fused_mlp_plain,
+                                  backward=partial(planted_backward, fault=fault))
+                faults[fault] = max(errors(gradients(batch, planted), plain).values())
+    errs = {k: max(r[k] for r in readings) for k in readings[0]}
+    per_seed = [max(r.values()) for r in readings]
+    grad_ok = max(per_seed) <= FLAGSHIP_GRAD_TOL
+
+    # one held-out view through the fused path
+    imgs, c2ws, intrs = run_net.load_eval_views(cfg)
+    before = counters()["fused_mlp_wide"].launches
+    rgb, _ = trainer.render_image(c2ws[0], intrs[0], NERF_SIZE, NERF_SIZE)
+    torch.cuda.synchronize()
+    val_launches = counters()["fused_mlp_wide"].launches - before
+    val = float(psnr(torch.clamp(rgb, 0, 1).cpu(), torch.from_numpy(imgs[0])))
+    render_ok = bool(torch.isfinite(rgb).all()) and val_launches > 0
+    worst = max(errs, key=errs.get)
+    print(f"flagship_fused: OriginNeRF D=8 W=256 skips=() bf16 use_fused lr=1e-3 "
+          f"detail {NERF_VIEWS}x{NERF_SIZE}x{NERF_SIZE} steps={FLAGSHIP_STEPS} "
+          f"s={t_train:.2f} psnr_first={bpsnr[0]:.3f} psnr_last={bpsnr[-1]:.3f} "
+          f"launches fused_mlp_wide={launches['fused_mlp_wide']} "
+          f"fused_mlp_wide_bwd={launches['fused_mlp_wide_bwd']}; gradient kernels vs plain "
+          f"versions |a-b|/|b| on {FLAGSHIP_GRAD_SEEDS} batches: max per batch "
+          + " ".join(f"{v:.2e}" for v in per_seed)
+          + f"; max {errs[worst]:.2e} ({worst}), per parameter "
+          + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+          + f" tol {FLAGSHIP_GRAD_TOL:.2e}; planted faults (first batch, max) "
+          + " ".join(f"{k}={v:.2e}" for k, v in faults.items())
+          + f"; val view {NERF_SIZE}x{NERF_SIZE} psnr={val:.3f} "
+          f"render_launches fused_mlp_wide={val_launches} [{card}]", flush=True)
+    if not (launches["fused_mlp_wide"] and launches["fused_mlp_wide_bwd"]):
+        fail(f"the fused flagship did not run the wide kernels: {launches}")
+    if not finite:
+        fail("the fused flagship produced a non-finite parameter")
+    if not bpsnr[-1] > bpsnr[0] + FLAGSHIP_PSNR_RISE:
+        fail(f"fused flagship train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}")
+    if not grad_ok:
+        fail(f"fused flagship gradients disagree with the plain versions: {errs}")
+    if not render_ok:
+        fail("the fused flagship's val render is not finite or ran no wide kernel")
+    launches["fused_mlp_wide"] += val_launches
+    return launches, (trainer, tcfg, data, gen)
+
+
+def phase_hash_march(card: str):
+    """Phase 14: the non-fused march (F3's path) in training."""
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.models import ngp
+    from myc_nerfs_tpu_torch.render.ngp_render import NGPRenderConfig
+    from myc_nerfs_tpu_torch.train.ngp_trainer import NGPTrainConfig, NGPTrainer
+
+    cfg = {"synthetic": True, "synthetic_views": TRAIN_VIEWS, "synthetic_size": TRAIN_SIZE}
+    data, _, _ = run_net.load_data(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    trainer = NGPTrainer(
+        ngp.NGPModelConfig(use_bf16=True, grid_impl="hash"),
+        NGPRenderConfig(n_coarse=128, n_samples=64, n_compact=20, near_distance=0.05,
+                        fused_march=False, compact_source="network"),
+        NGPTrainConfig(lr=1e-2, n_rays_per_batch=4096), gen, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = run_net.train_loop(trainer, trainer.cfg, data, HASH_STEPS, gen, log=lambda m: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_launches()
+    bpsnr = block_psnr(hist)
+    print(f"hash_march: NGP grid_impl=hash fused_march=False compact_source=network bf16 "
+          f"blobs {TRAIN_VIEWS}x{TRAIN_SIZE}x{TRAIN_SIZE} steps={HASH_STEPS} s={t_train:.2f} "
+          f"psnr_first={bpsnr[0]:.3f} psnr_last={bpsnr[-1]:.3f} samples_last="
+          f"{int(hist[-1]['n_samples'][-1])} launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items() if v) + f" [{card}]", flush=True)
+    if not (launches["fused_mlp"] and launches["fused_mlp_bwd"]):
+        fail(f"hash_march did not run the fused-MLP kernels: {launches}")
+    if not bpsnr[-1] > bpsnr[0] + HASH_PSNR_RISE:
+        fail(f"hash_march train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}")
+    return launches
+
+
+def phase_profile(card: str, train_ctx, flagship_ctx) -> None:
     """Where the time goes, after every counted and timed run: one render
     chunk stage by stage, one 800x800 frame (the slice's model, built
     again) and one train block of update_den_freq steps at 4096 rays
     (the trained model) under torch.profiler, each also timed without it,
-    for the device's busy share of the wall time."""
+    for the device's busy share of the wall time; then the wide fused-MLP
+    backward at WIDE_CHAIN and WIDE_ROWS in bf16 by kernel, and one train
+    block of the fused flagship (phase 13's trainer)."""
     from myc_nerfs_tpu_torch.cli import run_net
     from myc_nerfs_tpu_torch.core.config import load_config
     from myc_nerfs_tpu_torch.data.blender import RayBatcher
@@ -903,6 +1344,32 @@ def phase_profile(card: str, train_ctx) -> None:
                   f"({samples:.0f} samples per step), per step", prof, card, per=S,
                   wall_ms=wall_ms)
 
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand((WIDE_ROWS, WIDE_CHAIN[0]), device="cuda", generator=g).to(torch.bfloat16)
+    ws = [(torch.randn((a, b), device="cuda", generator=g) / a ** 0.5).to(torch.bfloat16)
+          for a, b in zip(WIDE_CHAIN[:-1], WIDE_CHAIN[1:])]
+    gy = torch.randn((WIDE_ROWS, WIDE_CHAIN[-1]), device="cuda", generator=g).to(torch.bfloat16)
+    fm.fused_mlp_backward(x, ws, gy)
+    prof = profiling.device_profile(lambda: fm.fused_mlp_backward(x, ws, gy))
+    print_profile(f"profile: fused_mlp_wide_backward bf16 {WIDE_ROWS} rows, by kernel", prof, card)
+
+    trainer, tcfg, data, gen = flagship_ctx
+    S, n_rays = tcfg.update_den_freq, 4096
+    batch = RayBatcher(data.n_images, data.n_pixels, n_rays, seed=3)
+    ids = [batch.next() for _ in range(S)]
+    rays = [data.rays_for_pixels(*i) for i in ids]
+    block = (np.stack([o for o, _ in rays]), np.stack([d for _, d in rays]),
+             np.stack([data.pixel_values(*i) for i in ids]))
+    metrics = trainer.train_block(*block, generator=gen)
+    samples = metrics["n_samples"].float().mean().item()
+    wall_ms = profiling.wall_ms(lambda: trainer.train_block(*block, generator=gen))
+    prof = profiling.device_profile(lambda: trainer.train_block(*block, generator=gen))
+    print_profile(f"profile: fused flagship train block of {S} steps at {n_rays} rays "
+                  f"({samples:.0f} samples per step), per step", prof, card, per=S,
+                  wall_ms=wall_ms)
+
 
 # where each kernel comes from: its source and the TPU kernel (file:line of
 # the function that reaches pl.pallas_call) it replaces; "also_replaces"
@@ -910,6 +1377,8 @@ def phase_profile(card: str, train_ctx) -> None:
 KERNELS = {
     "fused_mlp": ("fused_mlp.cu", "myc_nerfs_tpu/ops/pallas/fused_mlp.py:34", []),
     "fused_mlp_bwd": ("fused_mlp.cu", "myc_nerfs_tpu/ops/pallas/fused_mlp.py:47", []),
+    "fused_mlp_wide": ("fused_mlp.cu", "myc_nerfs_tpu/ops/pallas/fused_mlp.py:34", []),
+    "fused_mlp_wide_bwd": ("fused_mlp.cu", "myc_nerfs_tpu/ops/pallas/fused_mlp.py:47", []),
     "brick_encode": ("grid_encode.cu", "scripts/probe_r2d_chunked.py:79",
                      ["scripts/probe_r2c_rates.py:187", "scripts/probe_r2f_scale.py:40"]),
     "brick_encode_bwd": ("grid_encode.cu", "scripts/probe_r2d_chunked.py:162", []),
@@ -944,17 +1413,22 @@ def main() -> None:
     phase_build()
     stats = {"fused_mlp": phase_kernel(fm), "fused_mlp_bwd": phase_kernel_bwd(fm)}
     stats["brick_encode"], stats["brick_encode_bwd"] = phase_kernel_encode()
+    stats["fused_mlp_wide"], stats["fused_mlp_wide_bwd"] = phase_kernel_wide(fm)
     probe = phase_probe()
     grid, render = phase_slice(smi)
     train, train_ctx = phase_train(smi)
-    phase_profile(smi, train_ctx)
+    nerf, nerf_ctx = phase_nerf_train(smi)
+    flagship, flagship_ctx = phase_flagship_fused(smi, nerf_ctx)
+    hash_march = phase_hash_march(smi)
+    phase_profile(smi, train_ctx, flagship_ctx)
     phase_split(smi, train_ctx)
+    runs = (grid, render, train, nerf, flagship, hash_march)  # the main-path runs
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         if name in probe:
             entry = probe[name]
         else:
-            entry = {"launches": grid[name] + render[name] + train[name], **stats[name]}
+            entry = {"launches": sum(run[name] for run in runs), **stats[name]}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"myc_nerfs_tpu_torch/csrc/{source}",
                         "replaces": replaces, "also_replaces": also, **entry})

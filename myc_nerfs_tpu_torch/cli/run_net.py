@@ -8,19 +8,21 @@ cpu`` is given, and exits with an error where CUDA is not available.
 
 - ``--task train`` runs ``train_loop`` (the JAX run_net loop) to
   ``tot_train_steps`` (or ``--steps``) and saves ``model.ckpt`` in the JAX
-  package's format (needs the msgpack package).
+  package's format (core/checkpoint.py's own msgpack codec).
 - ``--task test`` renders the eval views, writes ``test/r_<i>.npy`` (and a
   PNG when PIL is installed) and appends the mean PSNR to ``psnr.txt``.
 - ``--task render`` renders ``render_frames`` views along the spherical
   path into ``demo/``.
 
 With ``load_ckpt = True`` in the config, ``<save_dir>/model.ckpt`` (the JAX
-package's or the port's) is restored first.
+package's or the port's) is restored first. Configs with ``model =
+dict(type="OriginNeRFNetworks")`` (configs/nerf/*.py) train an
+OriginNeRFModel through the same loop; ``--synthetic`` scenes are
+'blobs' (default), 'detail' and 'cascade' (``synthetic_scene``).
 """
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
 from typing import Dict, List, Optional
 
@@ -34,6 +36,7 @@ from ..core.registry import (ENCODERS, LOSSES, NETWORKS, OPTIMS, SAMPLERS,
                              SCHEDULERS, build_from_cfg)
 from ..data.synthetic import OFF, SCALE  # synthetic scenes: world -> NGP box
 from ..geom.camera_path import path_spherical
+from ..models.ori_nerf import OriginNeRFConfig, OriginNeRFModel
 from ..render.ngp_render import NGPRenderConfig
 from ..train.ngp_trainer import NGPTrainConfig, NGPTrainer
 from ..utils.metrics import psnr
@@ -59,6 +62,10 @@ def build_trainer(cfg, generator: torch.Generator, device="cuda",
                           NETWORKS, grid=grid, dir_encoder=dir_enc,
                           use_bf16=cfg.get("fp16", False),
                           grid_impl=cfg.get("grid_impl", "brick3"))
+    # OriginNeRFNetworks (projects/nerf) pairs the frequency-encoded MLP
+    # with the same sampler pipeline: the trainer takes it as its model
+    model = (OriginNeRFModel(mcfg, device=device, generator=generator)
+             if isinstance(mcfg, OriginNeRFConfig) else None)
     rcfg = NGPRenderConfig(
         aabb_scale=aabb_scale,
         n_coarse=cfg.get("n_coarse", 512),
@@ -103,35 +110,45 @@ def build_trainer(cfg, generator: torch.Generator, device="cuda",
              else None)))
     trainer = NGPTrainer(mcfg, rcfg, tcfg, generator, device=device,
                          camera_c2w=camera_c2w, focal=focal,
-                         image_wh=image_wh, loss_fn=loss_fn)
+                         image_wh=image_wh, loss_fn=loss_fn, model=model)
     return trainer, tcfg
 
 
-def _synthetic_scene(cfg):
+def _synthetic_scene(cfg, device=None):
     """The synthetic scene of run_net's data-free mode, built once per cfg
-    (train views first, then ``synthetic_val_views`` held-out views)."""
+    (train views first, then ``synthetic_val_views`` held-out views):
+    ``synthetic_scene`` 'blobs' (default), 'detail' (the quality runs'
+    256^2 field) or 'cascade' (content outside the unit box, four rings;
+    views a multiple of 4). ``device`` renders the ground truth there."""
     scene = cfg.get("_synthetic_scene_obj")
     if scene is not None:
         return scene
     from ..data import synthetic as syn
 
-    if cfg.get("synthetic_scene", "blobs") != "blobs":
-        raise ValueError("only the 'blobs' synthetic scene is ported")
     H = W = cfg.get("synthetic_size", 24)
     n = cfg.get("synthetic_views", 10) + cfg.get("synthetic_val_views", 0)
-    scene = syn.make_scene(n_views=n, H=H, W=W)
+    kind = cfg.get("synthetic_scene", "blobs")
+    if kind == "detail":
+        scene = syn.make_detail_scene(n_views=n, H=H, W=W, device=device)
+    elif kind == "cascade":
+        scene = syn.make_cascade_scene(n_views=n, H=H, W=W, device=device)
+    elif kind == "blobs":
+        scene = syn.make_scene(n_views=n, H=H, W=W)
+    else:
+        raise ValueError(f"unknown synthetic_scene {kind!r}: "
+                         "'blobs', 'detail' or 'cascade'")
     cfg["_synthetic_scene_obj"] = scene
     return scene
 
 
-def load_data(cfg):
+def load_data(cfg, device=None):
     """(training data, H, W): the ``--synthetic`` scene's train views
-    (SyntheticNGPData) or the config's blender dataset (NGPDataset, train
-    and val JSONs merged)."""
+    (SyntheticNGPData; ``device`` renders its ground truth) or the
+    config's blender dataset (NGPDataset, train and val JSONs merged)."""
     if cfg.get("synthetic"):
         from ..data.synthetic import SyntheticNGPData
 
-        scene = _synthetic_scene(cfg)
+        scene = _synthetic_scene(cfg, device)
         return (SyntheticNGPData(scene, cfg.get("synthetic_views", 10)),
                 scene.H, scene.W)
     from ..data import blender
@@ -287,11 +304,8 @@ def main(argv: Optional[list] = None):
     out_dir = args.save_dir or os.path.join(cfg.get("log_dir", "./logs"),
                                             cfg.get("exp_name", "run"))
     os.makedirs(out_dir, exist_ok=True)
-    if args.task == "train" and importlib.util.find_spec("msgpack") is None:
-        raise SystemExit("--task train saves model.ckpt, which needs the "
-                         "msgpack package")
 
-    data, H, W = load_data(cfg)
+    data, H, W = load_data(cfg, device)
     # the dataset's cameras let mark_untrained blank never-seen cells
     cam_kw = {}
     if hasattr(data, "c2w_ngp"):

@@ -1,15 +1,17 @@
-"""Convert the JAX package's NGP trees (as numpy arrays) into the port's
-state and back.
+"""Convert the JAX package's model trees (as numpy arrays) into the port's
+state and back, for an NGPModel or an OriginNeRFModel.
 
-- params: ``{"table": tables, "mlp": {"params": {"density0": {"kernel":
+- NGP params: ``{"table": tables, "mlp": {"params": {"density0": {"kernel":
   [in, out]}, ...}}}`` where tables is the per-group list ('brick3'; a
   checkpoint stores it as a dict keyed "0", "1", ...) or the single
   [n_params, F] array ('hash');
+- OriginNeRF params: ``{"mlp": {"params": {"pts_0": {"bias": [out],
+  "kernel": [in, out]}, ..., "views_0", "feature", "alpha", "rgb"}}}``;
 - the optax.adam state: ``({"count", "mu", "nu"}, {"count"})``, mu and nu
   shaped like params (a checkpoint keys the tuple "0", "1");
 - ``OccupancyState``: density_grid, bitfield, mean_density, ema_step.
 
-The port keeps parameters and moments as lists in NGPModel.param_list()
+The port keeps parameters and moments as lists in the model's param_list()
 order; ``param_tree`` and ``param_leaves`` convert between the two.
 
 bf16 arrays may arrive as ml_dtypes bfloat16 or already widened to f32;
@@ -23,7 +25,8 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..models.ngp import NGPModel, NGPNetwork
+from ..models.ngp import NGPNetwork
+from ..models.ori_nerf import OriginNeRFModel
 from ..render.occupancy import OccupancyState
 from ..train.ngp_trainer import AdamState
 
@@ -52,8 +55,13 @@ def _table_list(tables: Any) -> List[Any]:
     return [tables]
 
 
-def param_tree(model: NGPModel, leaves: Sequence[Any]) -> Dict[str, Any]:
+def param_tree(model, leaves: Sequence[Any]) -> Dict[str, Any]:
     """Leaves in param_list() order -> the JAX params tree layout."""
+    if isinstance(model, OriginNeRFModel):
+        layers: Dict[str, Dict[str, Any]] = {}
+        for (layer, kind), leaf in zip(model.leaf_names(), leaves):
+            layers.setdefault(layer, {})[kind] = leaf
+        return {"mlp": {"params": layers}}
     n = len(model.tables)
     tables = list(leaves[:n])
     return {"table": tables if model.cfg.grid_impl != "hash" else tables[0],
@@ -61,8 +69,15 @@ def param_tree(model: NGPModel, leaves: Sequence[Any]) -> Dict[str, Any]:
                                for name, leaf in zip(MLP_LAYERS, leaves[n:])}}}
 
 
-def param_leaves(model: NGPModel, tree: Dict[str, Any]) -> List[Any]:
+def param_leaves(model, tree: Dict[str, Any]) -> List[Any]:
     """A JAX params tree -> its leaves in param_list() order."""
+    if isinstance(model, OriginNeRFModel):
+        if "table" in tree:
+            raise ValueError("an NGP params tree for an OriginNeRF model")
+        layers = tree["mlp"]["params"]
+        return [layers[layer][kind] for layer, kind in model.leaf_names()]
+    if "table" not in tree:
+        raise ValueError("an OriginNeRF params tree for an NGP model")
     tables = _table_list(tree["table"])
     if len(tables) != len(model.tables):
         raise ValueError(f"{len(tables)} tables for a model with "
@@ -80,19 +95,25 @@ def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
         dst.copy_(t)
 
 
-def load_ngp_params(model: NGPModel, tree: Dict[str, Any]) -> NGPModel:
-    """Copy a JAX NGPModel params tree into ``model`` (in place)."""
+def load_params(model, tree: Dict[str, Any]):
+    """Copy a JAX params tree (NGPModel's or OriginNeRFModel's, as
+    ``model`` is) into ``model`` (in place)."""
     for i, (dst, src) in enumerate(zip(model.param_list(), param_leaves(model, tree))):
         _copy(dst, src, f"param {i}")
     return model
 
 
-def ngp_params_to_numpy(model: NGPModel) -> Dict[str, Any]:
-    """The inverse of load_ngp_params, in the JAX tree layout."""
+def params_to_numpy(model) -> Dict[str, Any]:
+    """The inverse of load_params, in the JAX tree layout."""
     return param_tree(model, [_numpy(p) for p in model.param_list()])
 
 
-def adam_from_numpy(model: NGPModel, opt_tree: Dict[str, Any]) -> AdamState:
+# by model family, as the tests and chip_smoke name them
+load_ngp_params = load_ori_nerf_params = load_params
+ngp_params_to_numpy = ori_nerf_params_to_numpy = params_to_numpy
+
+
+def adam_from_numpy(model, opt_tree: Dict[str, Any]) -> AdamState:
     """A checkpoint's optax.adam state {"0": {"count", "mu", "nu"}, "1":
     {"count"}} -> AdamState on the model's device, moments in the params'
     dtypes."""
@@ -111,7 +132,7 @@ def adam_from_numpy(model: NGPModel, opt_tree: Dict[str, Any]) -> AdamState:
                      mu=moments(adam["mu"]), nu=moments(adam["nu"]))
 
 
-def adam_tree(model: NGPModel, opt: AdamState) -> Dict[str, Any]:
+def adam_tree(model, opt: AdamState) -> Dict[str, Any]:
     """AdamState -> the optax.adam state tree as a checkpoint stores it,
     {"0": {"count", "mu", "nu"}, "1": {"count"}}, with the port's tensors
     as leaves (optax's two step counts are the one count)."""

@@ -31,6 +31,11 @@ def build_sh_encoder(degree: int = 4, **_ignored) -> dict:
     return {"degree": degree}
 
 
+@ENCODERS.register_module("FrequencyEncoder")
+def build_freq_encoder(multires: int = 10, **_ignored) -> dict:
+    return {"multires": multires}
+
+
 @NETWORKS.register_module("NGPNetworks")
 def build_ngp_networks(grid: Optional[HashGridConfig] = None,
                        use_fully: bool = True, use_bf16: bool = False,
@@ -45,6 +50,23 @@ def build_ngp_networks(grid: Optional[HashGridConfig] = None,
                           rgb_n_neurons=rgb_n_neurons, use_fully=use_fully)
 
 
+@NETWORKS.register_module("OriginNeRFNetworks")
+def build_origin_nerf_networks(grid=None, dir_encoder=None,
+                               use_bf16: bool = False, D: int = 8,
+                               W: int = 256, skips=(4,), **_ignored):
+    """OriginNeRFNetworks (jnerf ori_nerf_network.py:10-77): the 8x256 NeRF
+    MLP behind the DensityGridSampler pipeline. ``grid``/``dir_encoder`` are
+    the built FrequencyEncoder configs ({'multires': L}). As in the JAX
+    package, the factory leaves ``use_fused`` off."""
+    from ..models.ori_nerf import OriginNeRFConfig
+
+    multires_pos = grid.get("multires", 10) if isinstance(grid, dict) else 10
+    multires_dir = (dir_encoder or {}).get("multires", 4)
+    return OriginNeRFConfig(D=D, W=W, skips=tuple(skips),
+                            multires_pos=multires_pos,
+                            multires_dir=multires_dir, use_bf16=use_bf16)
+
+
 @SAMPLERS.register_module("DensityGridSampler")
 def build_density_grid_sampler(update_den_freq: int = 16, **kw) -> dict:
     return {"update_den_freq": update_den_freq, **kw}
@@ -55,6 +77,11 @@ def build_huber_loss(delta: float = 0.1, **_ignored):
     from ..train.ngp_trainer import huber_loss
 
     return lambda x, y: huber_loss(x, y, delta=delta)
+
+
+@LOSSES.register_module("MSELoss")
+def build_mse_loss(**_ignored):
+    return lambda x, y: (x - y) ** 2
 
 
 @OPTIMS.register_module("Adam")

@@ -64,6 +64,10 @@
 // shared-memory limit are worked out once per (widths, dtype, direction) by
 // fused_mlp_plan; the Python wrapper caches them.
 //
+// Chains wider than 64 (up to 272) take the wide kernels further down
+// (fused_mlp_wide_fwd / fused_mlp_wide_bwd): weights streamed through shared
+// memory a chunk at a time, and a backward through global scratch.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see ops/cuda/_build.py). Plain C entry
 // points, loaded with ctypes.
@@ -840,6 +844,471 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 }
 
 // ---------------------------------------------------------------------------
+// Wide chains: widths above kMaxWidth, up to kWideMax (OriginNeRF's backbone,
+// 64 -> 257 x 8 with the biases folded in, padded to 64 -> 272 x 8 by the
+// wrapper). The same function as above; at 272 the bf16 weights of every
+// layer (1.07 MB) and one CTA's f32 dW (2.1 MB) no longer fit on chip, so:
+//   - a chain kernel runs one layer after another over a CTA's row tile,
+//     which stays in shared memory, and streams each layer's weights through
+//     shared memory in 32-row chunks (cp.async, double-buffered, the next
+//     chunk loading while this one computes). bf16: 128-row tiles, 8 warps as
+//     4 row groups of 32 x 2 column halves, mma.sync m16n8k16 with f32
+//     accumulators in registers; a layer's output overwrites its input in
+//     place once every warp is past its last read. f32: 64-row tiles of k-major
+//     activations, 4x4 register micro-tiles on the CUDA cores, weights read
+//     through the cache. Each step has its own epilogue (ReLU, a mask by
+//     another tensor > 0, an f32 copy, a rounded copy), so one kernel is the
+//     forward, the backward's recompute of the post-activations, and its
+//     dgrad chain (round(g) @ W^T masked by post > 0, with W^T from the
+//     wrapper);
+//   - the backward writes post_i (dtype) and the masked g_i (f32) of every
+//     layer to global scratch, then a tiled dW_i = post_i^T g_i over row
+//     splits (bf16: 128 x 128 tiles, g as bf16 hi + lo, two mma into one f32
+//     accumulator, as the narrow kernel; f32: 64 x 64 tiles of 4x4
+//     micro-tiles), and the fixed-order sum of the splits above, so the
+//     result does not change from run to run.
+// What bounds it: 2 x 1.07 Mflop per row forward (140 Gflop at 131072 rows,
+// 0.14 ms at 989 TFLOP/s bf16), against 0.7 KB of x and y per row (0.03 ms):
+// the tensor cores. The backward's scratch (post_i and g_i of 7 hidden layers,
+// 11.4 KB per row in bf16) is written once and read once or twice; a later
+// design keeps it on chip.
+
+constexpr int kWideMax = 272;                        // widest layer the wide kernels take
+constexpr int kWideLd = kWideMax + kPad;             // bf16 row stride of tile and chunks
+constexpr int kWideRows = 128;                       // bf16 rows of a CTA's tile
+constexpr int kWideWarps = 8;                        // 4 row groups x 2 column halves
+constexpr int kWideKc = 32;                          // weight rows per staged chunk
+constexpr int kWidePairs = (kWideMax / 16 + 1) / 2;  // 16-column pairs of one half
+constexpr int kWideF32Rows = 64;                     // f32 rows of a CTA's tile
+constexpr int kWideF32Ld = kWideF32Rows + 4;         // k-major row stride
+constexpr int kWideF32Threads = 256;
+constexpr int kDwTile = 128;                         // bf16 dW tile (din x dout) of one CTA
+constexpr int kDwWarps = 8;                          // 4 x 2 warps of 32 x 64
+constexpr int kDwRows = 32;                          // bf16 rows per staged step of dW
+constexpr int kDwLd = kDwTile + kPad;
+constexpr int kDwF32Tile = 64;                       // f32 dW tile of one CTA
+constexpr int kDwF32Rows = 32;
+constexpr int kDwF32Ld = kDwF32Tile + 4;
+
+constexpr size_t kWideBf16Smem = size_t(kWideRows + 2 * kWideKc) * kWideLd * sizeof(bf16);
+constexpr size_t kWideF32Smem = 2 * size_t(kWideMax) * kWideF32Ld * sizeof(float);
+
+// A chain of `steps` products over the rows: out_s = epilogue(in_s @ B_s),
+// in_0 the kernel's input, in_{s+1} = round(out_s).
+struct WideChain {
+  const void* w[kMaxLayers];     // B_s [k[s]][n[s]], row-major, in the dtype
+  int k[kMaxLayers];
+  int n[kMaxLayers];
+  int steps;
+  unsigned relu;                 // bit s: ReLU on out_s
+  const void* mask[kMaxLayers];  // or null: out_s times (mask > 0), mask [m][n[s]]
+  float* gout[kMaxLayers];       // or null: out_s in f32 [m][n[s]], before rounding
+  void* dst[kMaxLayers];         // or null: round(out_s) [m][n[s]]
+};
+
+__global__ void __launch_bounds__(kWideWarps * 32, 1)
+fused_mlp_wide_bf16_kernel(const bf16* __restrict__ in, WideChain c, long long m) {
+  extern __shared__ __align__(16) bf16 smem[];
+  bf16* act = smem;                         // [kWideRows][kWideLd]
+  bf16* wbuf = smem + kWideRows * kWideLd;  // 2 x [kWideKc][kWideLd]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp & 3, half = warp >> 2;
+  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)blockIdx.x * kWideRows;
+
+  {  // the input tile; rows past m are zeroed
+    const int k0 = c.k[0], c8 = k0 / 8;
+    for (int i = threadIdx.x; i < kWideRows * c8; i += blockDim.x) {
+      const int r = i / c8, j = i - r * c8;
+      const long long row = row0 + r;
+      const bool ok = row < m;
+      cp_async16(smem_addr(act + r * kWideLd + 8 * j), in + (ok ? row : 0) * k0 + 8 * j,
+                 ok ? 16 : 0);
+    }
+  }
+  // weight chunks in the order the steps take them; (ls, lk) loads next
+  int ls = 0, lk = 0;
+  auto load_next = [&](int b) {
+    if (ls >= c.steps) return;
+    const bf16* w = static_cast<const bf16*>(c.w[ls]);
+    const int n = c.n[ls], n8 = n / 8;
+    const int rows = min(kWideKc, c.k[ls] - lk);
+    bf16* dst = wbuf + b * kWideKc * kWideLd;
+    for (int i = threadIdx.x; i < rows * n8; i += blockDim.x) {
+      const int r = i / n8, j = i - r * n8;
+      cp_async16(smem_addr(dst + r * kWideLd + 8 * j), w + (long long)(lk + r) * n + 8 * j, 16);
+    }
+    lk += kWideKc;
+    if (lk >= c.k[ls]) {
+      lk = 0;
+      ++ls;
+    }
+  };
+  load_next(0);
+  cp_async_commit();
+
+  int buf = 0;
+  for (int s = 0; s < c.steps; ++s) {
+    const int K = c.k[s], N = c.n[s];
+    const int pairs = N / 16, split = (pairs + 1) / 2;
+    const int p0 = half ? split : 0, np = half ? pairs - split : split;
+    float acc[2][2 * kWidePairs][4];
+#pragma unroll
+    for (int st = 0; st < 2; ++st)
+#pragma unroll
+      for (int j = 0; j < 2 * kWidePairs; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[st][j][e] = 0.f;
+
+    for (int kc = 0; kc < K; kc += kWideKc, buf ^= 1) {
+      load_next(buf ^ 1);
+      cp_async_commit();
+      cp_async_wait_1();
+      __syncthreads();
+      const bf16* wb = wbuf + buf * kWideKc * kWideLd;
+      const uint32_t bbase =
+          smem_addr(wb + ((q & 1) * 8 + r8) * kWideLd + (q >> 1) * 8 + 16 * p0);
+#pragma unroll
+      for (int kk = 0; kk < kWideKc; kk += 16) {
+        if (kc + kk >= K) break;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int st = 0; st < 2; ++st)
+          ldsm_x4(a[st], smem_addr(act + (32 * rg + 16 * st + (lane & 15)) * kWideLd + kc + kk +
+                                   (lane >> 4) * 8));
+#pragma unroll
+        for (int pp = 0; pp < kWidePairs; ++pp) {
+          if (pp >= np) break;
+          uint32_t b[4];
+          ldsm_x4_t(b, bbase + 2u * (kk * kWideLd + 16 * pp));
+#pragma unroll
+          for (int st = 0; st < 2; ++st) {
+            mma_bf16(acc[st][2 * pp], a[st], b[0], b[1]);
+            mma_bf16(acc[st][2 * pp + 1], a[st], b[2], b[3]);
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with this chunk (after the last, with act)
+    }
+
+    // epilogue, in place over act
+    const bool relu_s = (c.relu >> s) & 1u;
+    const bf16* mk = static_cast<const bf16*>(c.mask[s]);
+    float* go = c.gout[s];
+#pragma unroll
+    for (int st = 0; st < 2; ++st)
+#pragma unroll
+      for (int pp = 0; pp < kWidePairs; ++pp) {
+        if (pp >= np) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int rl = 32 * rg + 16 * st + g + 8 * e;
+            const int col = 16 * (p0 + pp) + 8 * h + 2 * t;
+            const long long row = row0 + rl;
+            float v0 = acc[st][2 * pp + h][2 * e], v1 = acc[st][2 * pp + h][2 * e + 1];
+            if (relu_s) {
+              v0 = relu(v0);
+              v1 = relu(v1);
+            }
+            if (row < m) {
+              if (mk) {  // a product, so a non-finite value stays non-finite
+                const float2 p =
+                    unpack_bf16(*reinterpret_cast<const uint32_t*>(mk + row * N + col));
+                v0 *= p.x > 0.f ? 1.f : 0.f;
+                v1 *= p.y > 0.f ? 1.f : 0.f;
+              }
+              if (go) *reinterpret_cast<float2*>(go + row * N + col) = make_float2(v0, v1);
+            }
+            *reinterpret_cast<uint32_t*>(act + rl * kWideLd + col) = pack_bf16(v0, v1);
+          }
+      }
+    if (c.dst[s]) {  // the rounded output by 16-byte stores of the rows < m
+      __syncthreads();
+      bf16* d = static_cast<bf16*>(c.dst[s]);
+      const int n8 = N / 8;
+      for (int i = threadIdx.x; i < kWideRows * n8; i += blockDim.x) {
+        const int r = i / n8, j = i - r * n8;
+        const long long row = row0 + r;
+        if (row < m)
+          *reinterpret_cast<uint4*>(d + row * N + 8 * j) =
+              *reinterpret_cast<const uint4*>(act + r * kWideLd + 8 * j);
+      }
+    }
+  }
+  cp_async_wait_0();
+}
+
+__global__ void __launch_bounds__(kWideF32Threads, 1)
+fused_mlp_wide_f32_kernel(const float* __restrict__ in, WideChain c, long long m) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int kLd = kWideF32Ld;
+  constexpr int kGroups = kWideF32Rows / 4;
+  float* hin = fsm;                     // k-major [kWideMax][kLd]
+  float* hout = fsm + kWideMax * kLd;
+  const long long row0 = (long long)blockIdx.x * kWideF32Rows;
+  load_tile_f32_t(hin, kLd, in, c.k[0], kWideF32Rows, row0, m);
+  __syncthreads();
+  for (int s = 0; s < c.steps; ++s) {
+    const int K = c.k[s], N = c.n[s];
+    const float* w = static_cast<const float*>(c.w[s]);
+    const bool relu_s = (c.relu >> s) & 1u;
+    const float* mk = static_cast<const float*>(c.mask[s]);
+    float* go = c.gout[s];
+    float* d = static_cast<float*>(c.dst[s]);
+    for (int it = threadIdx.x; it < kGroups * (N / 4); it += kWideF32Threads) {
+      const int r = 4 * (it % kGroups), col = 4 * (it / kGroups);
+      float o[4][4];
+      micro_fwd(o, hin, kLd, w, N, K, r, col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (relu_s)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[i][j] = relu(o[i][j]);
+        const long long row = row0 + r + i;
+        if (row < m) {
+          if (mk) {
+            const float4 p = *reinterpret_cast<const float4*>(mk + row * N + col);
+            o[i][0] *= p.x > 0.f ? 1.f : 0.f;
+            o[i][1] *= p.y > 0.f ? 1.f : 0.f;
+            o[i][2] *= p.z > 0.f ? 1.f : 0.f;
+            o[i][3] *= p.w > 0.f ? 1.f : 0.f;
+          }
+          const float4 v = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+          if (go) *reinterpret_cast<float4*>(go + row * N + col) = v;
+          if (d) *reinterpret_cast<float4*>(d + row * N + col) = v;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(hout + (col + j) * kLd + r) =
+            make_float4(o[0][j], o[1][j], o[2][j], o[3][j]);
+    }
+    __syncthreads();
+    float* tmp = hin;
+    hin = hout;
+    hout = tmp;
+  }
+}
+
+// dW_i = post_i^T g_i of every layer, one tile x tile block of one layer per
+// CTA (blockIdx.x over all layers' tiles) and one row split per blockIdx.y,
+// into partial[split][the concatenated dW]. A larger tile reads post_i and
+// g_i fewer times: at 272 wide, 128 x 128 tiles read each 3 times, 64 x 64
+// ones 5 times.
+struct WideDw {
+  const void* post[kMaxLayers];  // post_i [m][width[i]] in the dtype (post_0 = x)
+  const void* g[kMaxLayers];     // g_i [m][width[i+1]]: f32, except the top layer's in bf16
+  int width[kMaxLayers + 1];
+  int n_layers;
+  int dw_off[kMaxLayers];
+  int dw_floats;
+  int tile;                      // kDwTile (bf16) or kDwF32Tile
+  int tile_off[kMaxLayers + 1];
+  long long rows_per_split;
+};
+
+struct DwTile {
+  int l, din, dout, k0, c0;
+  long long rbeg, rend;
+};
+
+__device__ __forceinline__ DwTile dw_tile(const WideDw& d, long long m) {
+  DwTile tl;
+  tl.l = 0;
+  while (int(blockIdx.x) >= d.tile_off[tl.l + 1]) ++tl.l;
+  tl.din = d.width[tl.l];
+  tl.dout = d.width[tl.l + 1];
+  const int tn = (tl.dout + d.tile - 1) / d.tile;
+  const int lt = blockIdx.x - d.tile_off[tl.l];
+  tl.k0 = d.tile * (lt / tn);
+  tl.c0 = d.tile * (lt % tn);
+  tl.rbeg = blockIdx.y * d.rows_per_split;
+  tl.rend = min(m, tl.rbeg + d.rows_per_split);
+  return tl;
+}
+
+// bf16 rows [rc, rc + kDwRows) x columns [c0, c0 + kDwTile) of a [m][d]
+// matrix -> shared [kDwRows][kDwLd]; zeros outside the rows and columns
+__device__ __forceinline__ void stage_dw_bf16(bf16* dst, const bf16* src, int d, int c0,
+                                              long long rc, long long rend) {
+  for (int i = threadIdx.x; i < kDwRows * (kDwTile / 8); i += blockDim.x) {
+    const int r = i / (kDwTile / 8), j = i % (kDwTile / 8);
+    const long long row = rc + r;
+    const int col = c0 + 8 * j;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rend && col < d) v = *reinterpret_cast<const uint4*>(src + row * d + col);
+    *reinterpret_cast<uint4*>(dst + r * kDwLd + 8 * j) = v;
+  }
+}
+
+// v0, v1 -> their bf16 head and the bf16 rounding of the rest
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(v0, v1);
+  const float2 hf = unpack_bf16(hi);
+  // a non-finite head (NaN, inf, overflow) carries the value alone
+  lo = pack_bf16(fabsf(hf.x) <= 3.0e38f ? v0 - hf.x : 0.f,
+                 fabsf(hf.y) <= 3.0e38f ? v1 - hf.y : 0.f);
+}
+
+__global__ void __launch_bounds__(kDwWarps * 32)
+fused_mlp_wide_dw_bf16_kernel(WideDw d, long long m, float* __restrict__ partial) {
+  __shared__ __align__(16) bf16 ps[kDwRows * kDwLd];
+  __shared__ __align__(16) bf16 gh[kDwRows * kDwLd];
+  __shared__ __align__(16) bf16 gl[kDwRows * kDwLd];
+  const DwTile tl = dw_tile(d, m);
+  const bool gf32 = tl.l + 1 < d.n_layers;  // the top layer's g arrives rounded: g_lo = 0
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp & 3, wn = warp >> 2;  // a 32 x 64 block of the tile
+  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, t = lane & 3;
+  bool mv[2], nv[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) mv[i] = tl.k0 + 32 * wm + 16 * i < tl.din;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) nv[p] = tl.c0 + 64 * wn + 16 * p < tl.dout;
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (long long rc = tl.rbeg; rc < tl.rend; rc += kDwRows) {
+    stage_dw_bf16(ps, static_cast<const bf16*>(d.post[tl.l]), tl.din, tl.k0, rc, tl.rend);
+    if (gf32) {
+      const float* G = static_cast<const float*>(d.g[tl.l]);
+      for (int i = threadIdx.x; i < kDwRows * (kDwTile / 4); i += blockDim.x) {
+        const int r = i / (kDwTile / 4), j = i % (kDwTile / 4);
+        const long long row = rc + r;
+        const int col = tl.c0 + 4 * j;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < tl.rend && col < tl.dout)
+          v = *reinterpret_cast<const float4*>(G + row * tl.dout + col);
+        uint2 hi, lo;
+        split_bf16(v.x, v.y, hi.x, lo.x);
+        split_bf16(v.z, v.w, hi.y, lo.y);
+        *reinterpret_cast<uint2*>(gh + r * kDwLd + 4 * j) = hi;
+        *reinterpret_cast<uint2*>(gl + r * kDwLd + 4 * j) = lo;
+      }
+    } else {
+      stage_dw_bf16(gh, static_cast<const bf16*>(d.g[tl.l]), tl.dout, tl.c0, rc, tl.rend);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kr = 0; kr < kDwRows / 16; ++kr) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (mv[i])
+          ldsm_x4_t(a[i], smem_addr(ps + (16 * kr + (q >> 1) * 8 + r8) * kDwLd + 32 * wm +
+                                    16 * i + (q & 1) * 8));
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) {
+        if (!nv[pp]) continue;
+        const int off = (16 * kr + (q & 1) * 8 + r8) * kDwLd + 64 * wn + 16 * pp + (q >> 1) * 8;
+        uint32_t b[4];
+        ldsm_x4_t(b, smem_addr(gh + off));
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (mv[i]) {
+            mma_bf16(acc[i][2 * pp], a[i], b[0], b[1]);
+            mma_bf16(acc[i][2 * pp + 1], a[i], b[2], b[3]);
+          }
+        if (gf32) {
+          ldsm_x4_t(b, smem_addr(gl + off));
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (mv[i]) {
+              mma_bf16(acc[i][2 * pp], a[i], b[0], b[1]);
+              mma_bf16(acc[i][2 * pp + 1], a[i], b[2], b[3]);
+            }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = partial + (long long)blockIdx.y * d.dw_floats + d.dw_off[tl.l];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!mv[i] || !nv[j >> 1]) continue;
+      const int row = tl.k0 + 32 * wm + 16 * i + g;
+      const int col = tl.c0 + 64 * wn + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(out + row * tl.dout + col) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(out + (row + 8) * tl.dout + col) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+__global__ void __launch_bounds__(256)
+fused_mlp_wide_dw_f32_kernel(WideDw d, long long m, float* __restrict__ partial) {
+  __shared__ __align__(16) float ps[kDwF32Rows * kDwF32Ld];
+  __shared__ __align__(16) float gs[kDwF32Rows * kDwF32Ld];
+  const DwTile tl = dw_tile(d, m);
+  const float* P = static_cast<const float*>(d.post[tl.l]);
+  const float* G = static_cast<const float*>(d.g[tl.l]);
+  const int kk = 4 * (threadIdx.x >> 4), cc = 4 * (threadIdx.x & 15);  // a 4 x 4 of the tile
+  float o[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+
+  for (long long rc = tl.rbeg; rc < tl.rend; rc += kDwF32Rows) {
+    for (int i = threadIdx.x; i < kDwF32Rows * (kDwF32Tile / 4); i += 256) {
+      const int r = i / (kDwF32Tile / 4), j = i % (kDwF32Tile / 4);
+      const long long row = rc + r;
+      const int kc = tl.k0 + 4 * j, gc = tl.c0 + 4 * j;
+      float4 p = make_float4(0.f, 0.f, 0.f, 0.f), v = p;
+      if (row < tl.rend && kc < tl.din) p = *reinterpret_cast<const float4*>(P + row * tl.din + kc);
+      if (row < tl.rend && gc < tl.dout) v = *reinterpret_cast<const float4*>(G + row * tl.dout + gc);
+      *reinterpret_cast<float4*>(ps + r * kDwF32Ld + 4 * j) = p;
+      *reinterpret_cast<float4*>(gs + r * kDwF32Ld + 4 * j) = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kDwF32Rows; ++r) {
+      const float4 p = *reinterpret_cast<const float4*>(ps + r * kDwF32Ld + kk);
+      const float4 v = *reinterpret_cast<const float4*>(gs + r * kDwF32Ld + cc);
+      const float pv[4] = {p.x, p.y, p.z, p.w}, gv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pv[i], gv[j], o[i][j]);
+    }
+    __syncthreads();
+  }
+  if (tl.k0 + kk < tl.din && tl.c0 + cc < tl.dout) {
+    float* out = partial + (long long)blockIdx.y * d.dw_floats + d.dw_off[tl.l];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(out + (tl.k0 + kk + i) * tl.dout + tl.c0 + cc) =
+          make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+  }
+}
+
+bool wide_widths_ok(const int* widths, int n_layers) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return false;
+  for (int i = 0; i <= n_layers; ++i)
+    if (widths[i] <= 0 || widths[i] % 16 != 0 || widths[i] > kWideMax) return false;
+  return true;
+}
+
+int launch_chain(const void* in, const WideChain& c, long long m, int dtype, cudaStream_t s) {
+  if (dtype == 1)
+    fused_mlp_wide_bf16_kernel<<<int((m + kWideRows - 1) / kWideRows), kWideWarps * 32,
+                                 kWideBf16Smem, s>>>(static_cast<const bf16*>(in), c, m);
+  else
+    fused_mlp_wide_f32_kernel<<<int((m + kWideF32Rows - 1) / kWideF32Rows), kWideF32Threads,
+                                kWideF32Smem, s>>>(static_cast<const float*>(in), c, m);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 int make_net(const void* const* weights, const int* widths, int n_layers, Net* net) {
@@ -984,5 +1453,138 @@ extern "C" int fused_mlp_bwd(const void* x, const void* g, void* dx, void* dw, f
   } else {
     return -1;
   }
+  return int(cudaGetLastError());
+}
+
+// Lifts the dynamic shared-memory limit of the wide chain kernels on the
+// current device; call once per device before fused_mlp_wide_fwd/_bwd.
+// Returns 0, a cudaError_t code, or -2 when the device has too little shared
+// memory for them.
+extern "C" int fused_mlp_wide_init() {
+  int dev = 0, max_smem = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
+  if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return int(err);
+  if (kWideBf16Smem > size_t(max_smem) || kWideF32Smem > size_t(max_smem)) return -2;
+  if ((err = cudaFuncSetAttribute(fused_mlp_wide_bf16_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kWideBf16Smem))) != cudaSuccess)
+    return int(err);
+  return int(cudaFuncSetAttribute(fused_mlp_wide_f32_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kWideF32Smem)));
+}
+
+// Forward of a wide chain (widths multiples of 16 up to 272, at most 8
+// layers) over m rows, as fused_mlp_fwd. Returns 0, a cudaError_t code, or -1
+// for arguments the kernels do not take.
+extern "C" int fused_mlp_wide_fwd(const void* x, void* y, const void* const* weights,
+                                  const int* widths, int n_layers, long long m, int dtype,
+                                  void* stream) {
+  if (m < 0 || (dtype != 0 && dtype != 1) || !wide_widths_ok(widths, n_layers)) return -1;
+  if (m == 0) return 0;
+  WideChain c = {};
+  c.steps = n_layers;
+  for (int s = 0; s < n_layers; ++s) {
+    c.w[s] = weights[s];
+    c.k[s] = widths[s];
+    c.n[s] = widths[s + 1];
+    if (s + 1 < n_layers) c.relu |= 1u << s;
+  }
+  c.dst[n_layers - 1] = y;
+  return launch_chain(x, c, m, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Backward of fused_mlp_wide_fwd for m >= 1 rows. g, dx (may be null: not
+// wanted) and dw as fused_mlp_bwd; weights_t[i] is W_i^T [widths[i+1]][widths[i]].
+// Scratch: post holds m * sum_{i=1}^{n-1} widths[i] elements of the dtype (the
+// recomputed post-activations), gscr as many floats (the masked f32 g of each
+// layer below the top), partial [splits][sum_i widths[i]*widths[i+1]] floats.
+// Returns as fused_mlp_wide_fwd.
+extern "C" int fused_mlp_wide_bwd(const void* x, const void* g, void* dx, void* dw,
+                                  const void* const* weights, const void* const* weights_t,
+                                  const int* widths, int n_layers, long long m, int dtype,
+                                  void* post, float* gscr, float* partial, int splits,
+                                  void* stream) {
+  if (m < 1 || splits < 1 || (dtype != 0 && dtype != 1) || !wide_widths_ok(widths, n_layers))
+    return -1;
+  const int n = n_layers;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t es = dtype == 1 ? sizeof(bf16) : sizeof(float);
+  const void* posts[kMaxLayers];  // post_i, post_0 = x
+  float* gs[kMaxLayers];          // g_i below the top, f32
+  posts[0] = x;
+  char* pp = static_cast<char*>(post);
+  float* gp = gscr;
+  for (int i = 1; i < n; ++i) {
+    posts[i] = pp;
+    pp += size_t(m) * widths[i] * es;
+    gs[i - 1] = gp;
+    gp += size_t(m) * widths[i];
+  }
+  int err;
+  if (n > 1) {  // post_1 .. post_{n-1}: the forward's hidden layers again
+    WideChain c = {};
+    c.steps = n - 1;
+    for (int l = 0; l + 1 < n; ++l) {
+      c.w[l] = weights[l];
+      c.k[l] = widths[l];
+      c.n[l] = widths[l + 1];
+      c.relu |= 1u << l;
+      c.dst[l] = const_cast<void*>(posts[l + 1]);
+    }
+    if ((err = launch_chain(x, c, m, dtype, s)) != 0) return err;
+  }
+  const int steps = dx ? n : n - 1;  // the last step makes dx alone
+  if (steps > 0) {  // from the top: g_{i-1} = round(g_i) @ W_i^T masked by post_i > 0
+    WideChain c = {};
+    c.steps = steps;
+    for (int st = 0; st < steps; ++st) {
+      const int i = n - 1 - st;
+      c.w[st] = weights_t[i];
+      c.k[st] = widths[i + 1];
+      c.n[st] = widths[i];
+      if (i > 0) {
+        c.mask[st] = posts[i];
+        c.gout[st] = gs[i - 1];
+      } else {
+        c.dst[st] = dx;
+      }
+    }
+    if ((err = launch_chain(g, c, m, dtype, s)) != 0) return err;
+  }
+  WideDw d = {};
+  d.n_layers = n;
+  d.tile = dtype == 1 ? kDwTile : kDwF32Tile;
+  int off = 0, tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    d.post[i] = posts[i];
+    d.g[i] = i + 1 < n ? static_cast<const void*>(gs[i]) : g;
+    d.dw_off[i] = off;
+    off += widths[i] * widths[i + 1];
+    d.tile_off[i] = tiles;
+    tiles += ((widths[i] + d.tile - 1) / d.tile) * ((widths[i + 1] + d.tile - 1) / d.tile);
+  }
+  for (int i = 0; i <= n; ++i) d.width[i] = widths[i];
+  d.tile_off[n] = tiles;
+  d.dw_floats = off;
+  const long long per = (m + splits - 1) / splits;
+  d.rows_per_split = (per + kDwRows - 1) / kDwRows * kDwRows;
+  const dim3 grid(tiles, splits);
+  if (dtype == 1)
+    fused_mlp_wide_dw_bf16_kernel<<<grid, kDwWarps * 32, 0, s>>>(d, m, partial);
+  else
+    fused_mlp_wide_dw_f32_kernel<<<grid, 256, 0, s>>>(d, m, partial);
+  if ((err = int(cudaGetLastError())) != 0) return err;
+  const dim3 threads(kReduceCols, kReduceRows);
+  const int blocks = (off + kReduceCols - 1) / kReduceCols;
+  if (dtype == 1)
+    fused_mlp_bwd_reduce_kernel<bf16><<<blocks, threads, 0, s>>>(partial, splits, off,
+                                                                 static_cast<bf16*>(dw));
+  else
+    fused_mlp_bwd_reduce_kernel<float><<<blocks, threads, 0, s>>>(partial, splits, off,
+                                                                  static_cast<float*>(dw));
   return int(cudaGetLastError());
 }

@@ -14,10 +14,19 @@ The backward follows the Pallas ``_bwd_kernel``: it recomputes the
 forward's post-activations (rounded to x's dtype), accumulates each dW in
 f32 from the unrounded f32 gradient, and rounds the gradient to x's dtype
 before each dgrad product. Weights use the JAX layout, [in, out] per layer.
-The kernels take widths that are multiples of 16 up to 64 (both NGP MLPs),
-at most 8 layers, in bf16 (tensor cores) or f32 (CUDA cores); the plain
-versions take any widths. ``mlp_work`` gives a call's flops, bytes and its
-H100 bound from the shapes.
+
+On CUDA tensors the wrapper zero-pads every width to a multiple of 16 (zero
+rows and columns stay zero through ReLU) and slices the padding off the
+results. Chains up to 64 wide (both NGP MLPs) take the narrow kernels
+(weights staged once per CTA); chains with a width above 64, up to 272
+(OriginNeRF's 64 -> 257 x 8 backbone with its biases folded in), take the
+wide kernels (``fused_mlp_wide``, ``fused_mlp_wide_backward``: weights
+streamed through shared memory, a backward through global scratch). At most
+8 layers, in bf16 (tensor cores) or f32 (CUDA cores); anything wider raises.
+The plain versions take any widths; ``fused_mlp_plain`` runs them on any
+device (the kernels' yardstick in a model's gradient). ``mlp_work`` gives a
+call's flops, bytes and its H100 bound from the shapes; ``exact_inputs``
+draws a chain on which every summation order gives the same bits.
 """
 from __future__ import annotations
 
@@ -33,7 +42,11 @@ from . import _build
 
 SOURCE = _build.CSRC / "fused_mlp.cu"
 MAX_LAYERS = 8
-MAX_WIDTH = 64
+MAX_WIDTH = 64         # the narrow kernels
+WIDE_MAX_WIDTH = 272   # the wide kernels
+WIDTH_STEP = 16        # the kernels' width granularity; the wrapper pads to it
+WIDE_SPLIT_ROWS = 4096  # rows of one split of the wide backward's dW product
+WIDE_MAX_SPLITS = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -116,8 +129,25 @@ def _library() -> ctypes.CDLL:
     lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
     lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
                                   i32, i64, i32, ptr]
-    for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd):
+    lib.fused_mlp_wide_init.argtypes = []
+    lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, ptr]
+    lib.fused_mlp_wide_bwd.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptrs, ints, i32,
+                                       i64, i32, ptr, ptr, ptr, i32, ptr]
+    for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd,
+               lib.fused_mlp_wide_init, lib.fused_mlp_wide_fwd, lib.fused_mlp_wide_bwd):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_library(device: int) -> ctypes.CDLL:
+    """The library, with the wide kernels' shared-memory limit lifted on
+    ``device`` (once per device)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.fused_mlp_wide_init()
+    if err != 0:
+        raise RuntimeError(f"fused_mlp wide kernels: init failed (error {err})")
     return lib
 
 
@@ -168,7 +198,7 @@ def _check_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> None:
 
 
 def _kernel_widths(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> List[int]:
-    """The checks both kernels share; returns the layer widths."""
+    """The checks every kernel shares; returns the layer widths."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -176,13 +206,34 @@ def _kernel_widths(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> List[int
     if len(weights) > MAX_LAYERS:
         raise ValueError(f"fused_mlp kernel takes at most {MAX_LAYERS} layers")
     widths = [x.shape[1]] + [w.shape[1] for w in weights]
-    if any(d % 16 or d > MAX_WIDTH for d in widths):
-        raise ValueError(f"fused_mlp kernel takes widths that are multiples "
-                         f"of 16 up to {MAX_WIDTH}, got {widths}")
+    if any(d > WIDE_MAX_WIDTH for d in widths):
+        raise ValueError(f"fused_mlp kernels take widths up to {WIDE_MAX_WIDTH}, "
+                         f"got {widths}")
     for w in weights:
         if w.device != x.device or w.dtype != x.dtype:
             raise ValueError("fused_mlp: weights must share x's device and dtype")
     return widths
+
+
+def padded_widths(widths: Sequence[int]) -> List[int]:
+    """Each width rounded up to the kernels' granularity (16)."""
+    return [-(-d // WIDTH_STEP) * WIDTH_STEP for d in widths]
+
+
+def pad_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]
+              ) -> Tuple[torch.Tensor, List[torch.Tensor], List[int]]:
+    """(x, weights, widths) zero-padded to widths that are multiples of 16.
+    The padded chain computes the same values, and zeros in the padding:
+    a zero column of x meets a zero row of W_0, and a zero column of W_i is
+    zero after ReLU, where it meets a zero row of W_i+1."""
+    widths = [x.shape[1]] + [w.shape[1] for w in weights]
+    padded = padded_widths(widths)
+    if padded != widths:
+        x = torch.nn.functional.pad(x, (0, padded[0] - widths[0]))
+        weights = [torch.nn.functional.pad(w, (0, padded[i + 1] - widths[i + 1],
+                                               0, padded[i] - widths[i]))
+                   for i, w in enumerate(weights)]
+    return x, list(weights), padded
 
 
 def _c_args(weights: Sequence[torch.Tensor], widths: Sequence[int]):
@@ -193,7 +244,17 @@ def _c_args(weights: Sequence[torch.Tensor], widths: Sequence[int]):
 def _forward(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_mlp_reference(x, weights)
-    widths = _kernel_widths(x, weights)
+    d_out = _kernel_widths(x, weights)[-1]
+    x, weights, widths = pad_chain(x, weights)
+    if max(widths) > MAX_WIDTH:
+        y = fused_mlp_wide(x, weights)
+    else:
+        y = _narrow_forward(x, weights, widths)
+    return y if widths[-1] == d_out else y[:, :d_out]
+
+
+def _narrow_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                    widths: List[int]) -> torch.Tensor:
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
@@ -228,13 +289,30 @@ def fused_mlp_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          f"{(x.shape[0], weights[-1].shape[1])}")
     if x.device.type == "cpu":
         return fused_mlp_backward_reference(x, weights, g, need_dx)
-    widths = _kernel_widths(x, weights)
+    real = _kernel_widths(x, weights)
     if g.device != x.device:
         raise ValueError("fused_mlp backward: g must share x's device")
+    x, weights, widths = pad_chain(x, weights)
+    g = g.to(x.dtype)
+    if widths[-1] != real[-1]:
+        g = torch.nn.functional.pad(g, (0, widths[-1] - real[-1]))
+    if max(widths) > MAX_WIDTH:
+        dx, dws = fused_mlp_wide_backward(x, weights, g, need_dx)
+    else:
+        dx, dws = _narrow_backward(x, weights, g, widths, need_dx)
+    if widths != real:
+        dx = dx[:, :real[0]] if dx is not None else None
+        dws = [dw[:a, :b] for dw, a, b in zip(dws, real[:-1], real[1:])]
+    return dx, dws
+
+
+def _narrow_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                     g: torch.Tensor, widths: List[int], need_dx: bool
+                     ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     m = x.shape[0]
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
-    g = _aligned(g.to(x.dtype))
+    g = _aligned(g)
     sizes = [a * b for a, b in zip(widths[:-1], widths[1:])]
     dw = torch.empty(sum(sizes), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
@@ -260,21 +338,89 @@ def fused_mlp_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return dx, dws
 
 
+def fused_mlp_wide(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The wide forward kernel on CUDA tensors whose widths are multiples
+    of 16 up to 272 (fused_mlp pads and calls it for chains above 64)."""
+    widths = [x.shape[1]] + [w.shape[1] for w in weights]
+    x = _aligned(x)
+    weights = [_aligned(w) for w in weights]
+    y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
+    if x.shape[0] == 0:
+        return y
+    lib = _wide_library(x.device.index)
+    w_ptrs, c_widths = _c_args(weights, widths)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_mlp_wide_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
+                                     len(weights), x.shape[0], _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp wide kernel launch failed (error {err}) "
+                           f"for widths {widths}")
+    fused_mlp_wide.launches += 1
+    return y
+
+
+def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                            g: torch.Tensor, need_dx: bool = True
+                            ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+    """The wide backward kernels on CUDA tensors as fused_mlp_wide takes
+    them, g [M, D_out] in x's dtype. Scratch for the recomputed
+    post-activations, each layer's f32 gradient and the row splits' partial
+    dW is allocated here and released with the call."""
+    widths = [x.shape[1]] + [w.shape[1] for w in weights]
+    m, dtype = x.shape[0], x.dtype
+    x = _aligned(x)
+    weights = [_aligned(w) for w in weights]
+    weights_t = [w.t().contiguous() for w in weights]
+    g = _aligned(g)
+    sizes = [a * b for a, b in zip(widths[:-1], widths[1:])]
+    dw = torch.empty(sum(sizes), dtype=dtype, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    if m == 0:
+        dw.zero_()
+    else:
+        lib = _wide_library(x.device.index)
+        hidden = m * sum(widths[1:-1])
+        post = torch.empty(hidden, dtype=dtype, device=x.device)
+        gscr = torch.empty(hidden, dtype=torch.float32, device=x.device)
+        splits = min(WIDE_MAX_SPLITS, -(-m // WIDE_SPLIT_ROWS))
+        partial = torch.empty((splits, sum(sizes)), dtype=torch.float32, device=x.device)
+        w_ptrs, c_widths = _c_args(weights, widths)
+        wt_ptrs, _ = _c_args(weights_t, widths)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        with torch.cuda.device(x.device):
+            err = lib.fused_mlp_wide_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+                dw.data_ptr(), w_ptrs, wt_ptrs, c_widths, len(weights), m,
+                _DTYPE_CODE[dtype], post.data_ptr() or None, gscr.data_ptr() or None,
+                partial.data_ptr(), splits, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_mlp wide backward launch failed (error {err}) "
+                               f"for widths {widths}")
+        fused_mlp_wide_backward.launches += 1
+    dws = [t.view(a, b) for t, a, b in
+           zip(torch.split(dw, sizes), widths[:-1], widths[1:])]
+    return dx, dws
+
+
 class _FusedMLP(torch.autograd.Function):
-    """fused_mlp with its backward: saves x and the weights (not the
-    activations; the backward recomputes them, as the Pallas kernel does)."""
+    """fused_mlp and fused_mlp_plain with their backward: saves x and the
+    weights (not the activations; the backward recomputes them, as the
+    Pallas kernel does). ``backward`` is None for the kernels' path, else
+    the plain backward to run (the forward is then the plain one too)."""
 
     @staticmethod
-    def forward(ctx, x, *weights):
+    def forward(ctx, backward, x, *weights):
+        ctx.plain_backward = backward
         ctx.save_for_backward(x, *weights)
-        return _forward(x, weights)
+        return _forward(x, weights) if backward is None else fused_mlp_reference(x, weights)
 
     @staticmethod
     def backward(ctx, gy):
         x, *weights = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dx, dws = fused_mlp_backward(x, weights, gy, need_dx=need[0])
-        return (dx if need[0] else None,
+        need = ctx.needs_input_grad[1:]
+        dx, dws = (ctx.plain_backward or fused_mlp_backward)(x, weights, gy, need_dx=need[0])
+        return (None, dx if need[0] else None,
                 *[dw if n else None for dw, n in zip(dws, need[1:])])
 
 
@@ -286,8 +432,41 @@ def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     do not take raises, and so does a failed build or launch.
     """
     _check_chain(x, weights)
-    return _FusedMLP.apply(x, *weights)
+    return _FusedMLP.apply(None, x, *weights)
 
 
-fused_mlp.launches = 0           # forward kernel launches
-fused_mlp_backward.launches = 0  # backward kernel launches
+def fused_mlp_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                    backward=fused_mlp_backward_reference) -> torch.Tensor:
+    """fused_mlp through its plain versions on any device: the kernels'
+    yardstick inside a model's gradient (OriginNeRFModel.mlp). ``backward``,
+    with fused_mlp_backward_reference's signature, replaces the plain
+    backward (a planted fault, to read what a check sees of it)."""
+    _check_chain(x, weights)
+    return _FusedMLP.apply(backward, x, *weights)
+
+
+def exact_inputs(widths: Sequence[int], rows: int, dtype: torch.dtype, device,
+                 seed: int = 0) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+    """(x, weights, g) of integers, drawn on the CPU from ``seed``: x in
+    {0, 1, 2}, g in {-2, ..., 2}, weights sparse in {-1, 0, 1} (1 in 32
+    nonzero), so activations stay small. Every product and sum of the
+    forward, the dgrad chain and dW is then an f32 integer, exact (in any
+    summation order, so the kernels must match the plain versions bit for
+    bit) where the magnitudes summed into one element stay below 2^24: at
+    [64, 257 x 8] up to 16384 rows, and in practice at 131072. The deeper
+    layers' gradients outgrow bf16's 8-bit integers, so their rounding to
+    bf16 before each dgrad shows in dx, and dW's use of the unrounded
+    gradient in dW."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 3, (rows, widths[0]), generator=gen).float()
+    ws = [torch.randint(-1, 2, (a, b), generator=gen).float()
+          * (torch.rand((a, b), generator=gen) < 1 / 32).float()
+          for a, b in zip(widths[:-1], widths[1:])]
+    g = torch.randint(-2, 3, (rows, widths[-1]), generator=gen).float()
+    return x.to(device, dtype), [w.to(device, dtype) for w in ws], g.to(device, dtype)
+
+
+fused_mlp.launches = 0                # narrow forward kernel launches
+fused_mlp_backward.launches = 0       # narrow backward kernel launches
+fused_mlp_wide.launches = 0           # wide forward kernel launches
+fused_mlp_wide_backward.launches = 0  # wide backward launches (chain, dW, sum)

@@ -1,12 +1,17 @@
-"""NGP ray marching + rendering, fused march (counterpart of
+"""NGP ray marching + rendering (counterpart of
 myc_nerfs_tpu/render/ngp_render.py).
 
-The fused march of the JAX package: pass 1 probes the density grid at
-n_coarse uniform depths inside the ray/AABB intersection, decides
-occupancy with the bitfield threshold and keeps a coarse transmittance;
-pass 2 places K samples by inverse CDF over the live bins. The samples go
-through the field and the NGP compositor (jnerf RaySampler, CompactedCoord
-and CalcRgb folded into one static-shape pass).
+The fused march (default): pass 1 probes the density grid at n_coarse
+uniform depths inside the ray/AABB intersection, decides occupancy with the
+bitfield threshold and keeps a coarse transmittance; pass 2 places K
+samples by inverse CDF over the live bins (jnerf RaySampler, CompactedCoord
+and CalcRgb folded into one static-shape pass). With ``fused_march=False``
+the two-pass bitfield march (``march_rays``) places n_samples per ray, and
+in training ``compact_marched`` keeps the first n_compact samples before
+the transmittance falls below eps, from the density grid
+(``compact_source='grid'``) or from a detached density forward of the
+network (``'network'``, the reference's CompactedCoord). The samples go
+through the field and the NGP compositor.
 
 Positions are warped to [0, 1] over the cascade AABB and directions to
 [0, 1], as the network expects (ray_sampler_header.h:790-822).
@@ -20,8 +25,10 @@ import numpy as np
 import torch
 
 from ..models.ngp import density_activation, rgb_activation
+from ..ops.compaction import compact_first_k
 from .composite import composite_rgb, composite_weights
-from .occupancy import OccupancyConfig, OccupancyState, grid_value_at, mip_from_pos
+from .occupancy import (OccupancyConfig, OccupancyState, grid_value_at, mip_from_pos,
+                        occupied_at, occupied_at_mip0, sigma_at)
 
 SQRT3 = 1.7320508075688772
 MAX_STEP = 1024  # NERF_STEPS (density_grid_sampler.py:38)
@@ -29,9 +36,7 @@ MAX_STEP = 1024  # NERF_STEPS (density_grid_sampler.py:38)
 
 @dataclasses.dataclass(frozen=True)
 class NGPRenderConfig:
-    """Same fields and defaults as the JAX NGPRenderConfig. Only the fused
-    march is ported: ``fused_march=False`` and ``compact_source='network'``
-    are refused by render_rays_ngp."""
+    """Same fields and defaults as the JAX NGPRenderConfig."""
 
     aabb_scale: int = 1
     n_coarse: int = 512
@@ -85,6 +90,52 @@ def ray_aabb_range(rcfg: NGPRenderConfig, rays_o: torch.Tensor,
     tmin = torch.clamp_min(tmin, rcfg.near_distance)
     tmax = torch.maximum(tmax, tmin)
     return tmin, tmax
+
+
+def march_rays(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
+               bitfield: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
+               xi: Optional[torch.Tensor] = None) -> MarchedRays:
+    """Two-pass occupancy-gated march (jnerf rays_sampler, ray_sampler.h):
+    pass 1 probes the bitfield at n_coarse uniform depths, pass 2 places
+    rcfg.n_samples samples by inverse CDF over the occupied bins, each
+    re-checked against the bitfield. ``xi`` [N, 1] is the per-ray jitter
+    (the JAX package draws it from ``key``; None: 0.5)."""
+    tmin, tmax = ray_aabb_range(rcfg, rays_o, rays_d)
+    span = tmax - tmin
+
+    def lookup(pos):
+        if rcfg.aabb_scale == 1:
+            return occupied_at_mip0(occ_cfg, bitfield, pos)
+        return occupied_at(occ_cfg, bitfield, pos, mip_from_pos(occ_cfg, pos))
+
+    Mc = rcfg.n_coarse
+    frac = (torch.arange(Mc, dtype=torch.float32, device=rays_o.device) + 0.5) / Mc
+    tc = tmin[:, None] + span[:, None] * frac[None, :]
+    pos_c = rays_o[:, None, :] + rays_d[:, None, :] * tc[..., None]
+    return _place_samples(occ_cfg, rcfg, rays_o, rays_d, tmin, span, span / Mc,
+                          lookup(pos_c), rcfg.n_samples, xi, lookup)
+
+
+def compact_marched(marched: MarchedRays, sigma_det: torch.Tensor, n_compact: int,
+                    eps: float = 1e-4) -> MarchedRays:
+    """Early-termination compaction (CompactedCoord, compacted_coord.h:39-77):
+    per ray the first n_compact valid samples whose transmittance before
+    them is above eps, from the detached density ``sigma_det`` [N, K];
+    positions, t and dt gathered, dirs the ray's own."""
+    N = sigma_det.shape[0]
+    alpha = 1.0 - torch.exp(-sigma_det * marched.dt)
+    alpha = torch.where(marched.valid, alpha, 0.0)
+    log1ma = torch.log1p(-torch.clamp_max(alpha, 1.0 - 1e-7))
+    logT_prev = torch.cat([torch.zeros((N, 1), device=sigma_det.device),
+                           torch.cumsum(log1ma, dim=-1)[:, :-1]], dim=-1)
+    surv = marched.valid & (torch.exp(logT_prev) > eps)
+    idx, valid = compact_first_k(surv, n_compact)
+    packed = torch.cat([marched.positions, marched.t[..., None],
+                        marched.dt[..., None]], dim=-1)                   # [N, K, 5]
+    taken = torch.gather(packed, 1, idx[..., None].expand(*idx.shape, 5))  # [N, M, 5]
+    dirs = marched.dirs[:, :1].expand(taken[..., :3].shape)
+    return MarchedRays(positions=taken[..., :3], dirs=dirs, dt=taken[..., 4],
+                       t=taken[..., 3], valid=valid)
 
 
 def _place_samples(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
@@ -215,17 +266,32 @@ def render_rays_ngp(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
                     rays_o: torch.Tensor, rays_d: torch.Tensor,
                     bg_color: torch.Tensor, xi: Optional[torch.Tensor] = None,
                     density_apply: Optional[Callable] = None) -> NGPRenderOut:
-    """Fused march + field + composite (DensityGridSampler.sample + rays2rgb).
+    """March + field + composite (DensityGridSampler.sample + rays2rgb).
 
-    With ``density_apply`` and rcfg.n_compact > 0 (training) the march
-    places n_compact samples per ray, else n_samples.
+    With ``density_apply`` and rcfg.n_compact > 0 (training) the fused march
+    places n_compact samples per ray, else n_samples. With
+    ``fused_march=False``, or in training with ``compact_source='network'``,
+    the bitfield march places n_samples, and in training compact_marched
+    keeps n_compact of them, by the density grid ('grid') or by
+    ``density_apply``'s detached density ('network').
     """
     compacting = density_apply is not None and rcfg.n_compact > 0
-    if not rcfg.fused_march or (compacting and rcfg.compact_source == "network"):
-        raise NotImplementedError(
-            "only the fused march is ported (fused_march=True with "
-            "compact_source='grid')")
-    K = rcfg.n_compact if compacting else rcfg.n_samples
-    marched = march_rays_fused(occ_cfg, rcfg, occ_state, rays_o, rays_d, xi,
-                               n_samples=K)
+    if rcfg.fused_march and not (compacting and rcfg.compact_source == "network"):
+        K = rcfg.n_compact if compacting else rcfg.n_samples
+        marched = march_rays_fused(occ_cfg, rcfg, occ_state, rays_o, rays_d, xi,
+                                   n_samples=K)
+        return render_marched(model_apply, marched, bg_color, rcfg.early_stop_eps)
+    marched = march_rays(occ_cfg, rcfg, occ_state.bitfield, rays_o, rays_d, xi)
+    if compacting:
+        N, K, _ = marched.positions.shape
+        if rcfg.compact_source == "grid":
+            lo, hi = rcfg.aabb
+            world = marched.positions * (hi - lo) + lo  # un-warp
+            mip = None if rcfg.aabb_scale == 1 else mip_from_pos(occ_cfg, world)
+            sigma_det = sigma_at(occ_cfg, occ_state.density_grid, world, mip)
+        else:
+            with torch.no_grad():
+                raw = density_apply(marched.positions.reshape(-1, 3))
+                sigma_det = density_activation(raw.reshape(N, K))
+        marched = compact_marched(marched, sigma_det, rcfg.n_compact, rcfg.early_stop_eps)
     return render_marched(model_apply, marched, bg_color, rcfg.early_stop_eps)

@@ -95,7 +95,7 @@ class AdamState(NamedTuple):
 
 
 class NGPTrainState(NamedTuple):
-    params: NGPModel
+    params: torch.nn.Module  # the model (NGPModel, or the trainer's override)
     opt_state: AdamState
     occ: occ.OccupancyState
     step: int
@@ -211,14 +211,19 @@ class NGPTrainer:
     """Host-side orchestration. ``device`` (cuda unless the caller asks for
     the CPU) places every tensor; the generator draws the initial weights,
     and the march jitter and grid samples of calls that are given neither
-    draws nor a generator."""
+    draws nor a generator.
+
+    ``model`` overrides the NGPModel built from ``model_cfg``: any module
+    with ``forward(positions, dirs)``, ``density_raw(positions)`` and
+    ``param_list()`` (e.g. models/ori_nerf.OriginNeRFModel, on ``device``)
+    trains under the same loop, grid update and checkpoint."""
 
     def __init__(self, model_cfg: NGPModelConfig, rcfg: NGPRenderConfig,
                  cfg: NGPTrainConfig, generator: torch.Generator, device="cuda",
                  camera_c2w: Optional[torch.Tensor] = None,
                  focal: Optional[torch.Tensor] = None,
                  image_wh: Optional[Tuple[int, int]] = None,
-                 loss_fn=None):
+                 loss_fn=None, model: Optional[torch.nn.Module] = None):
         self.device = torch.device(device)
         self.rcfg = rcfg
         self.cfg = cfg
@@ -234,7 +239,8 @@ class NGPTrainer:
                 f"aabb_scale={rcfg.aabb_scale} exceeds the supported "
                 f"{max_aabb_scale} (grid has {self.occ_cfg.n_cascades} "
                 "cascades; raise OccupancyConfig.n_cascades by factors of 2)")
-        self.model = NGPModel(model_cfg, device=self.device, generator=generator)
+        self.model = (model if model is not None else
+                      NGPModel(model_cfg, device=self.device, generator=generator))
         occ_state = occ.init_occupancy(self.occ_cfg, self.device)
         if camera_c2w is not None:
             grid0 = occ.mark_untrained(self.occ_cfg, camera_c2w.to(self.device),

@@ -62,8 +62,10 @@ def test_fused_mlp_matches_plain(cuda_device, widths, dtype, rtol, rows):
 
 
 def test_fused_mlp_refuses_what_the_kernel_does_not_take(cuda_device):
-    x, ws = _net((32, 64, 8), 10, torch.float32, cuda_device)
-    with pytest.raises(ValueError, match="multiples of 16"):
+    # widths that are not multiples of 16 are padded (test_fused_mlp_pads_
+    # to_the_kernels_widths); a width above 272 is refused
+    x, ws = _net((32, 288, 16), 10, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="up to 272"):
         fm.fused_mlp(x, ws)
     x, ws = _net((32, 64, 16), 10, torch.float16, cuda_device)
     with pytest.raises(TypeError):
@@ -78,6 +80,124 @@ def test_fused_mlp_refuses_what_the_kernel_does_not_take(cuda_device):
         y = fm.fused_mlp(x.requires_grad_(), ws)
         with pytest.raises(ValueError, match="shared memory"):
             y.float().sum().backward()
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("widths", [(32, 64, 8), (30, 50, 3), (16, 33, 33)])
+def test_fused_mlp_pads_to_the_kernels_widths(cuda_device, widths, dtype, rtol):
+    """Widths that are not multiples of 16 run padded (zero rows and
+    columns) and come back sliced: y, dx and each dW against the plain
+    versions on the unpadded chain."""
+    x, ws = _net(widths, 1000, dtype, cuda_device)
+    g = _grad_out(1000, widths[-1], dtype, cuda_device)
+    with torch.no_grad():
+        y, ref = fm.fused_mlp(x, ws), fm.fused_mlp_reference(x, ws)
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    torch.cuda.synchronize()
+    for a, b in [(y, ref), (dx, dx_ref)] + list(zip(dws, dws_ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (a.float() - b.float()).abs().max().item() <= \
+            (rtol if dtype == torch.bfloat16 else 1e-4) * max(1.0, b.float().abs().max().item())
+
+
+WIDE = [(64,) + (257,) * 8, (48, 96, 80, 16), (16, 272, 272, 3), (272, 272)]
+WIDE_ROWS = [1, 127, 128, 129, 1000, 131072]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("widths", WIDE)
+@pytest.mark.parametrize("rows", WIDE_ROWS)
+def test_fused_mlp_wide_matches_plain(cuda_device, widths, dtype, rtol, rows):
+    """Chains above 64 wide take the wide kernel (its counter, not the
+    narrow one's): random inputs, as test_fused_mlp_matches_plain."""
+    x, ws = _net(widths, rows, dtype, cuda_device)
+    before = fm.fused_mlp_wide.launches, fm.fused_mlp.launches
+    with torch.no_grad():
+        out = fm.fused_mlp(x, ws)
+        ref = fm.fused_mlp_reference(x, ws)
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_wide.launches, fm.fused_mlp.launches) == (before[0] + 1, before[1])
+    assert out.dtype == dtype and out.shape == (rows, widths[-1])
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", WIDE)
+@pytest.mark.parametrize("rows", WIDE_ROWS)
+def test_fused_mlp_wide_backward_exact_inputs(cuda_device, widths, dtype, rows):
+    """On fm.exact_inputs (integers: every sum exact, so any order gives
+    the same bits): y, dx and every dW equal to the plain versions' bits."""
+    x, ws, g = fm.exact_inputs(widths, rows, dtype, cuda_device)
+    before = fm.fused_mlp_wide_backward.launches
+    with torch.no_grad():
+        y, y_ref = fm.fused_mlp(x, ws), fm.fused_mlp_reference(x, ws)
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_wide_backward.launches == before + 1
+    assert torch.equal(y, y_ref) and torch.equal(dx, dx_ref)
+    for a, b in zip(dws, dws_ref):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("widths", WIDE)
+@pytest.mark.parametrize("rows", [127, 1000, 70001])
+def test_fused_mlp_wide_backward_matches_plain_f32(cuda_device, widths, rows):
+    """Random f32 inputs: dx 1e-5 and dW 1e-4 of scale (BWD_TOL). In bf16
+    random inputs put some pre-activation within a rounding of 0, where
+    any two summation orders disagree on the ReLU mask (the exact-input
+    test above holds the bf16 kernels instead)."""
+    x, ws = _net(widths, rows, torch.float32, cuda_device)
+    g = _grad_out(rows, widths[-1], torch.float32, cuda_device)
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    torch.cuda.synchronize()
+    tol_dx, tol_dw = BWD_TOL[torch.float32]
+    for i, (a, b) in enumerate([(dx, dx_ref)] + list(zip(dws, dws_ref))):
+        tol = tol_dx if i == 0 else tol_dw
+        assert (a - b).abs().max().item() <= tol * max(1.0, b.abs().max().item())
+
+
+def test_fused_mlp_wide_backward_is_deterministic_and_skips_dx(cuda_device):
+    x, ws = _net((64,) + (257,) * 8, 20000, torch.bfloat16, cuda_device)
+    g = _grad_out(20000, 257, torch.bfloat16, cuda_device)
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx2, dws2 = fm.fused_mlp_backward(x, ws, g)
+    none, dws3 = fm.fused_mlp_backward(x, ws, g, need_dx=False)
+    assert none is None and torch.equal(dx, dx2)
+    assert all(map(torch.equal, dws, dws2)) and all(map(torch.equal, dws, dws3))
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_ori_nerf_fused_on_gpu_matches_cpu(cuda_device, use_bf16):
+    """OriginNeRFModel(use_fused) at D=8, W=256: the backbone through the
+    wide kernels on the card against the same weights on the CPU through
+    the plain versions, forward and every parameter's gradient. f32 1e-4 of
+    scale; bf16 2^-5 of scale over the norm (mask flips, see above)."""
+    from myc_nerfs_tpu_torch.models import ori_nerf
+
+    cfg = ori_nerf.OriginNeRFConfig(skips=(), use_fused=True, use_bf16=use_bf16)
+    cpu = ori_nerf.OriginNeRFModel(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = ori_nerf.OriginNeRFModel(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    pos = torch.from_numpy(rng.uniform(0, 1, (4000, 3)).astype(np.float32))
+    dirs = torch.from_numpy(rng.uniform(0, 1, (4000, 3)).astype(np.float32))
+    before = fm.fused_mlp_wide.launches, fm.fused_mlp_wide_backward.launches
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        out = model(pos.to(dev), dirs.to(dev))
+        grads = torch.autograd.grad((out ** 2).sum(), model.param_list())
+        outs.append([out.detach().float().cpu()] + [g.float().cpu() for g in grads])
+    assert (fm.fused_mlp_wide.launches, fm.fused_mlp_wide_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(outs[1], outs[0]):
+        if use_bf16:
+            assert (a - b).norm() <= 2.0 ** -5 * b.norm().clamp_min(1e-6)
+        else:
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-6)
 
 
 def test_ngp_model_on_gpu_matches_cpu(cuda_device):

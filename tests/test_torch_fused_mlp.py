@@ -235,6 +235,45 @@ def test_backward_needs_input_grad():
     assert dx is None and len(dws) == 2
 
 
+
+def test_plain_wrapper_runs_the_plain_versions_and_a_given_backward():
+    """fused_mlp_plain: the plain forward and backward under autograd (on
+    the CPU the same bits as fused_mlp); a backward passed to it is the one
+    autograd runs."""
+    x, ws = _net((16, 48, 32, 8), 14, 50)
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt = [torch.from_numpy(w).bfloat16().requires_grad_() for w in ws]
+    g = torch.from_numpy(np.random.default_rng(15).standard_normal((50, 8))).bfloat16()
+    y, yp = fm.fused_mlp(xt, wt), fm.fused_mlp_plain(xt, wt)
+    assert torch.equal(y, yp)
+    kernel_path = torch.autograd.grad(y, [xt] + wt, g)
+    plain = torch.autograd.grad(yp, [xt] + wt, g)
+    assert all(map(torch.equal, kernel_path, plain))
+    calls = []
+
+    def doubled(x, weights, g, need_dx=True):
+        calls.append(need_dx)
+        return fm.fused_mlp_backward_reference(x, weights, 2 * g, need_dx)
+
+    twice = torch.autograd.grad(fm.fused_mlp_plain(xt, wt, backward=doubled), [xt] + wt, g)
+    assert calls == [True] and all(torch.equal(a, 2 * b) for a, b in zip(twice, plain))
+
+
+def test_exact_inputs_sum_alike_in_any_order_and_show_bf16_rounding():
+    """exact_inputs at OriginNeRF's chain: the plain backward gives the
+    same bits on the rows in another order (every sum is exact), and in
+    bf16 it differs from the autograd of the plain forward, which rounds
+    the gradient to bf16 before each dW (a backward without the lo term)."""
+    widths = (64,) + (257,) * 8
+    x, ws, g = fm.exact_inputs(widths, 2048, torch.bfloat16, "cpu", seed=5)
+    dx, dws = fm.fused_mlp_backward_reference(x, ws, g)
+    perm = torch.randperm(2048, generator=torch.Generator().manual_seed(1))
+    dx_p, dws_p = fm.fused_mlp_backward_reference(x[perm], ws, g[perm])
+    assert torch.equal(dx_p, dx[perm]) and all(map(torch.equal, dws_p, dws))
+    wt = [w.clone().requires_grad_() for w in ws]
+    rounded = torch.autograd.grad(fm.fused_mlp_reference(x, wt), wt, g)
+    assert any(not torch.equal(a, b) for a, b in zip(rounded, dws))
+
 # (widths, backward, dtype) -> (flops, bytes, bound in us, bound_by) at 262144
 # rows: the H100 bounds of the NGP MLPs (bytes: x and y, or x, g and dx, plus
 # the weights; flops: the function's, against 989 TFLOP/s bf16, 67 f32)
@@ -251,3 +290,42 @@ def test_mlp_work_bounds(widths, backward, dtype, expect):
     np.testing.assert_allclose([work["flops"], work["bytes"], 1e3 * work["bound_ms"]],
                                [flops, nbytes, bound_us], rtol=1e-3)
     assert work["bound_by"] == by
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(64,) + (257,) * 3, (16, 33, 33), (63, 30, 3)])
+def test_padding_to_the_kernels_widths_is_exact(widths, dtype):
+    """pad_chain (what the wrapper does on the card before a kernel):
+    widths rounded up to multiples of 16 with zero rows and columns. The
+    plain forward and backward of the padded chain, sliced, equal the
+    unpadded chain's (f32 to 1e-6 of scale: the BLAS may block a longer
+    sum differently; bf16 to one ulp), and the padding columns of y, dx and
+    every dW are exactly 0."""
+    x, ws = _net(widths, 3, 200)
+    x = torch.from_numpy(x).to(dtype)
+    ws = [torch.from_numpy(w).to(dtype) for w in ws]
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal((200, widths[-1]))
+                         .astype(np.float32)).to(dtype)
+    xp, wp, padded = fm.pad_chain(x, ws)
+    assert padded == fm.padded_widths(widths) and all(d % 16 == 0 for d in padded)
+    assert [tuple(w.shape) for w in wp] == list(zip(padded[:-1], padded[1:]))
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    y, yp = fm.fused_mlp_reference(x, ws), fm.fused_mlp_reference(xp, wp)
+    assert (yp[:, widths[-1]:] == 0).all()
+    gp = torch.nn.functional.pad(g, (0, padded[-1] - widths[-1]))
+    (dx, dws), (dxp, dwsp) = (fm.fused_mlp_backward_reference(x, ws, g),
+                              fm.fused_mlp_backward_reference(xp, wp, gp))
+    assert (dxp[:, widths[0]:] == 0).all()
+    pairs = [(y, yp[:, :widths[-1]]), (dx, dxp[:, :widths[0]])]
+    for i, (a, b) in enumerate(zip(dws, dwsp)):
+        assert (b[widths[i]:] == 0).all() and (b[:, widths[i + 1]:] == 0).all()
+        pairs.append((a, b[:widths[i], :widths[i + 1]]))
+    for a, b in pairs:
+        assert (a.float() - b.float()).abs().max() <= tol * max(1.0, a.float().abs().max())
+
+
+def test_padded_widths_round_up_to_16():
+    """The kernels take multiples of 16, the wide ones up to 272: the
+    wrapper pads OriginNeRF's 257 to 272 and a 3-wide head to 16."""
+    assert fm.padded_widths([64, 257, 257, 3]) == [64, 272, 272, 16]
+    assert fm.WIDE_MAX_WIDTH == 272 and fm.MAX_WIDTH == 64
