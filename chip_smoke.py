@@ -5,9 +5,11 @@ Phases, each ending in one line (a failure exits non-zero):
 2. build: compiles the three sources under myc_nerfs_tpu_torch/csrc/
    (fused_mlp.cu, grid_encode.cu, grid_probe.cu) with nvcc, all at once,
    and prints each one's build time; then counts, in the built libraries'
-   SASS (cuobjdump -sass), the tensor-core (HMMA) instructions of the bf16
-   fused-MLP kernels, which must not be 0, and the global reductions (RED)
-   and atomics (ATOM) of the encode backward, which must add by RED.
+   SASS (cuobjdump -sass), the tensor-core instructions of the bf16
+   fused-MLP kernels, HMMA (mma.sync) in the narrow ones and HGMMA (wgmma)
+   in the wide chain and dW kernels, which must not be 0, and the global
+   reductions (RED) and atomics (ATOM) of the encode backward, which must
+   add by RED.
 3. kernel: the fused_mlp forward kernel against its plain PyTorch version
    at both NGP MLP shapes (density 32->64->16, rgb 32->64->64->16),
    262144 rows (one 4096-ray x 64-sample chunk), f32 and bf16, TF32 off;
@@ -85,7 +87,9 @@ Phases, each ending in one line (a failure exits non-zero):
    unrounded gradient), are read against both checks: the exact check
    must see each of them (the run fails if a fault gives the reference's
    bits), and their norm error on random inputs is printed beside
-   WIDE_BWD_NORM_TOL.
+   WIDE_BWD_NORM_TOL. A NaN and an inf planted in x must come out where
+   the plain versions put them (wide_non_finite): the same NaN and inf
+   elements forward, the same non-finite elements of dx and every dW.
 12. nerf_train (after phase 8): run_net.build_trainer on
    configs/nerf/budget_synthetic.py as the file gives it (OriginNeRF,
    skips (4,), bf16, lr 1e-3, n_coarse 128, n_compact 32, 4096 rays) on
@@ -164,8 +168,9 @@ TABLE_E2E_REL_TOL = 3e-3
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
 BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
 SPLIT_BATCHES = 2                        # batches checked at each state (phase 10)
-SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel",
-                "fused_mlp_wide_bf16_kernel", "fused_mlp_wide_dw_bf16_kernel")
+# the narrow bf16 kernels run mma.sync (SASS HMMA), the wide ones wgmma (HGMMA)
+SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel")
+WGMMA_KERNELS = ("fused_mlp_wide_bf16_kernel", "fused_mlp_wide_dw_bf16_kernel")
 # OriginNeRF's fused backbone: 64 -> 257 x 8 with the biases folded in, at
 # the flagship's train step (4096 rays x n_compact 32)
 WIDE_CHAIN = (64,) + (257,) * 8
@@ -184,6 +189,8 @@ EXACT_LIMIT = 2.0 ** 24
 WIDE_BWD_NORM_TOL = 2.0 ** -5
 # planted faults of the bf16 backward (planted_backward)
 FAULTS = ("no_lo", "unrounded_g")
+# phase 11's non-finite check: x rows that get a NaN and an inf
+NONFINITE_ROWS = (5, 4100)
 NERF_VIEWS, NERF_SIZE, NERF_STEPS, FLAGSHIP_STEPS, HASH_STEPS = 12, 128, 256, 128, 64
 # the train PSNR of the last block must beat the first block's by this much
 # (dB), half, rounded down, of the first chip run's rise on an H100 80GB
@@ -260,16 +267,21 @@ def phase_build() -> None:
               f"in {secs:.2f} s", flush=True)
     print(f"build: all sources in {time.perf_counter() - t0:.2f} s (in parallel)",
           flush=True)
-    # the bf16 MLP kernels must run on the tensor cores: HMMA in their SASS;
-    # the encode backward adds by reductions (RED), not returning atomics
+    # the bf16 MLP kernels must run on the tensor cores: HMMA (mma.sync) in
+    # the narrow kernels' SASS, HGMMA (wgmma) in the wide ones'; the encode
+    # backward adds by reductions (RED), not returning atomics
     hmma = sass_counts(results[0][0], SASS_KERNELS, ("HMMA",))
+    hgmma = sass_counts(results[0][0], WGMMA_KERNELS, ("HGMMA",))
     red = sass_counts(results[1][0], (ENCODE_BWD_SASS,), ("RED", "ATOM"))[ENCODE_BWD_SASS]
     print("sass: HMMA instructions (cuobjdump -sass) "
           + " ".join(f"{k}={n['HMMA']}" for k, n in hmma.items())
+          + "; HGMMA " + " ".join(f"{k}={n['HGMMA']}" for k, n in hgmma.items())
           + f"; brick_encode_bwd_kernel<F=2, bf16> RED={red['RED']} ATOM={red['ATOM']}",
           flush=True)
     if not all(n["HMMA"] for n in hmma.values()):
-        fail(f"a bf16 fused-MLP kernel has no tensor-core instruction: {hmma}")
+        fail(f"a narrow bf16 fused-MLP kernel has no tensor-core instruction: {hmma}")
+    if not all(n["HGMMA"] for n in hgmma.values()):
+        fail(f"a wide bf16 fused-MLP kernel has no wgmma instruction: {hgmma}")
     if not red["RED"]:
         fail(f"the encode backward adds by no RED instruction: {red}")
 
@@ -1086,6 +1098,7 @@ def phase_kernel_wide(fm) -> tuple:
             fail(f"fused_mlp_wide_backward {dtype}: exact {exact_diff} (sums {max(sums)}, "
                  f"plain steps equal {plain_same}) random {norm_errs} deterministic {same} "
                  f"planted faults the exact check cannot see {unseen}")
+        wide_non_finite(fm, x, ws, gy, dtype)
         if dtype == torch.bfloat16:
             bwd = {"max_abs_err": exact_err, "max_abs_err_random": max(max_errs),
                    "norm_err_random": max(norm_errs), "ms": b_k, "call_ms": b_c,
@@ -1093,6 +1106,44 @@ def phase_kernel_wide(fm) -> tuple:
                    "library_padded_ms": b_lp, "bound_ms": b_work["bound_ms"],
                    "bound_by": b_work["bound_by"]}
     return fwd, bwd
+
+
+def wide_non_finite(fm, x, ws, gy, dtype) -> None:
+    """Phase 11's non-finite check: a NaN and an inf planted in x (rows
+    NONFINITE_ROWS) come out of the wide kernels where the plain versions
+    put them. Forward: the same NaN and the same inf elements. Backward:
+    the same non-finite elements of dx and every dW. An inf may read NaN
+    there: the kernel forms dW from the gradient's bf16 head and rest, two
+    products, and inf times a rest of 0, or of the head's opposite sign,
+    is NaN where the plain version's one product is inf."""
+    rows = NONFINITE_ROWS
+    xb = x[:rows[-1] + 64].clone()
+    xb[rows[0], 3] = float("nan")
+    xb[rows[1], 10] = float("inf")
+    g = gy[:xb.shape[0]]
+    with torch.no_grad():
+        y, ref = fm.fused_mlp(xb, ws), fm.fused_mlp_reference(xb, ws)
+    dx, dws = fm.fused_mlp_backward(xb, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(xb, ws, g)
+    torch.cuda.synchronize()
+    fwd_same = (torch.equal(torch.isnan(y), torch.isnan(ref))
+                and torch.equal(torch.isinf(y), torch.isinf(ref)))
+    bwd_same = [torch.equal(torch.isfinite(a), torch.isfinite(b))
+                for a, b in zip([dx] + dws, [dx_ref] + dws_ref)]
+    planted = bool((~torch.isfinite(y[list(rows)])).any(1).all())
+    print(f"kernel_wide_nonfinite: {dtype_name(dtype)} NaN at x[{rows[0]}, 3], inf at "
+          f"x[{rows[1]}, 10] of {xb.shape[0]} rows: forward NaN {int(torch.isnan(y).sum())} "
+          f"(plain {int(torch.isnan(ref).sum())}) inf {int(torch.isinf(y).sum())} "
+          f"(plain {int(torch.isinf(ref).sum())}) same elements={fwd_same}; backward "
+          f"non-finite dx {int((~torch.isfinite(dx)).sum())} (plain "
+          f"{int((~torch.isfinite(dx_ref)).sum())}) dW "
+          f"{sum(int((~torch.isfinite(a)).sum()) for a in dws)} (plain "
+          f"{sum(int((~torch.isfinite(b)).sum()) for b in dws_ref)}) same elements="
+          f"{all(bwd_same)} {'ok' if fwd_same and all(bwd_same) and planted else 'BREACH'}",
+          flush=True)
+    if not (fwd_same and all(bwd_same) and planted):
+        fail(f"fused_mlp_wide {dtype}: non-finite values not where the plain version puts "
+             f"them (forward {fwd_same}, backward {bwd_same}, planted rows non-finite {planted})")
 
 
 def block_psnr(hist):

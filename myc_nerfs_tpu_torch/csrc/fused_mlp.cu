@@ -65,8 +65,9 @@
 // fused_mlp_plan; the Python wrapper caches them.
 //
 // Chains wider than 64 (up to 272) take the wide kernels further down
-// (fused_mlp_wide_fwd / fused_mlp_wide_bwd): weights streamed through shared
-// memory a chunk at a time, and a backward through global scratch.
+// (fused_mlp_wide_fwd / fused_mlp_wide_bwd_*): weights streamed through
+// shared memory a chunk at a time, and a backward through global scratch;
+// in bf16 on wgmma with TMA (hopper.cuh).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see ops/cuda/_build.py). Plain C entry
@@ -75,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -847,198 +850,93 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 // Wide chains: widths above kMaxWidth, up to kWideMax (OriginNeRF's backbone,
 // 64 -> 257 x 8 with the biases folded in, padded to 64 -> 272 x 8 by the
 // wrapper). The same function as above; at 272 the bf16 weights of every
-// layer (1.07 MB) and one CTA's f32 dW (2.1 MB) no longer fit on chip, so:
-//   - a chain kernel runs one layer after another over a CTA's row tile,
-//     which stays in shared memory, and streams each layer's weights through
-//     shared memory in 32-row chunks (cp.async, double-buffered, the next
-//     chunk loading while this one computes). bf16: 128-row tiles, 8 warps as
-//     4 row groups of 32 x 2 column halves, mma.sync m16n8k16 with f32
-//     accumulators in registers; a layer's output overwrites its input in
-//     place once every warp is past its last read. f32: 64-row tiles of k-major
-//     activations, 4x4 register micro-tiles on the CUDA cores, weights read
-//     through the cache. Each step has its own epilogue (ReLU, a mask by
-//     another tensor > 0, an f32 copy, a rounded copy), so one kernel is the
-//     forward, the backward's recompute of the post-activations, and its
-//     dgrad chain (round(g) @ W^T masked by post > 0, with W^T from the
-//     wrapper);
-//   - the backward writes post_i (dtype) and the masked g_i (f32) of every
-//     layer to global scratch, then a tiled dW_i = post_i^T g_i over row
-//     splits (bf16: 128 x 128 tiles, g as bf16 hi + lo, two mma into one f32
-//     accumulator, as the narrow kernel; f32: 64 x 64 tiles of 4x4
-//     micro-tiles), and the fixed-order sum of the splits above, so the
-//     result does not change from run to run.
+// layer (1.07 MB) and one CTA's f32 dW (2.1 MB) no longer fit on chip, so a
+// chain kernel runs one layer after another over a CTA's row tile, which
+// stays in shared memory, and streams each layer's weights through shared
+// memory. Each step of a chain has its own epilogue (ReLU, a mask by another
+// tensor > 0, copies of the result), so one kernel is the forward, the
+// backward's recompute of the post-activations, and its dgrad chain
+// (round(g) @ W^T masked by post > 0). The backward writes what its dW
+// product needs (post_i, g_i) to global scratch, then dW_i = post_i^T g_i
+// over row splits and the fixed-order sum of the splits above, so the result
+// does not change from run to run.
+//
 // What bounds it: 2 x 1.07 Mflop per row forward (140 Gflop at 131072 rows,
 // 0.14 ms at 989 TFLOP/s bf16), against 0.7 KB of x and y per row (0.03 ms):
-// the tensor cores. The backward's scratch (post_i and g_i of 7 hidden layers,
-// 11.4 KB per row in bf16) is written once and read once or twice; a later
-// design keeps it on chip.
+// the tensor cores. The backward moves its scratch (post_i and g_i of the
+// hidden layers) through device memory: written once and read once, 1.6 GB
+// each way at 131072 rows in bf16, about 1 ms at 3.35 TB/s.
+//
+// bf16 design (wgmma, TMA, mbarriers; hopper.cuh):
+//   - chain kernels (kind 0 the forward, 2 the recompute, 1 the dgrad): a
+//     persistent grid of one CTA per SM walking 128-row tiles, three
+//     warpgroups. One producer warp streams every step's weights in 64-row
+//     (k) chunks through a 3-slot ring with TMA and full/empty mbarriers, in
+//     boxes of 128-byte rows with the 128-byte swizzle (boxes of 16-byte
+//     columns, one line per row, kept the TMA unit busy longer than the
+//     tensor cores). Two consumer warpgroups each own 64 rows of the tile.
+//     Their activations stay in shared memory as the wgmma A operand, in
+//     8 x 8 core-matrix cells ([8-row group][k/8][8][8], K-major, no
+//     swizzle), and each k16 step is one wgmma.m64n256k16 (bf16 -> f32) plus
+//     an m64n16k16 for columns 256..271 (m64n64 for N <= 64), B the staged
+//     chunk. The forward reads W [k][n] as an MN-major B; the dgrad reads the
+//     same W [n][k] as a K-major B, so no W^T copy is made. Accumulators stay
+//     in registers (136 f32 a thread; setmaxnreg moves registers from the
+//     producer to the consumers). After a step's last wgmma a warpgroup
+//     writes ReLU/mask/round back over its own 64 rows, in place (in the
+//     step's output width), with no barrier across warpgroups, while the
+//     producer already fetches the next step's chunks. Inputs arrive and the
+//     last output leaves by TMA (a box per 8-row group), and what the
+//     backward keeps leaves by one bulk copy of the block;
+//   - backward scratch: each plane in the same cell layout, 64-row block
+//     after block, so a block moves by one bulk copy each way and any 8-row
+//     groups of it are contiguous. The recompute writes post_i (bf16, post_0
+//     a copy of x) and a bit plane of post_i > 0 per thread (2.5 KB a block:
+//     the dgrad's threads hold the same elements and read only their bits,
+//     not the 34 KB of post_i); the dgrad writes g_i as two bf16 planes,
+//     g_hi = bf16(g) and g_lo = bf16(g - g_hi) (split_bf16: a non-finite head
+//     carries the value alone), g_hi being the next dgrad step's input, and
+//     the top g as it came;
+//   - dW kernel: dW_i = post_i^T g_hi + post_i^T g_lo, two wgmma into one f32
+//     accumulator, contracting over rows (post_i the MN-major A, the g
+//     planes the MN-major B). A CTA holds 128 din rows (a slice) x all dout
+//     columns (two consumer warpgroups of 64 x 272) of one layer over one row
+//     split; a producer warp keeps four 32-row slots in flight, each four
+//     contiguous bulk copies of the CTA's post slice and one of each g
+//     plane. Each split writes its partial dW; the fixed-order sum follows.
+//     The slices of a layer can run as one cluster whose first CTA
+//     multicasts the g planes to the others (WIDE_DW_MULTICAST in the
+//     wrapper): each g byte is then read from L2 once per split, not once per
+//     slice, but the clusters' lock step ran slower on an H100 than
+//     independent CTAs in several waves, which the wrapper launches.
+//
+// f32 design (CUDA cores): 64-row tiles of k-major activations, 4x4
+// register micro-tiles, weights read through the cache and W^T from the
+// wrapper; the backward's scratch in f32 (post_i, the masked g_i), and a
+// tiled dW_i = post_i^T g_i of 64 x 64 tiles.
 
-constexpr int kWideMax = 272;                        // widest layer the wide kernels take
-constexpr int kWideLd = kWideMax + kPad;             // bf16 row stride of tile and chunks
-constexpr int kWideRows = 128;                       // bf16 rows of a CTA's tile
-constexpr int kWideWarps = 8;                        // 4 row groups x 2 column halves
-constexpr int kWideKc = 32;                          // weight rows per staged chunk
-constexpr int kWidePairs = (kWideMax / 16 + 1) / 2;  // 16-column pairs of one half
-constexpr int kWideF32Rows = 64;                     // f32 rows of a CTA's tile
-constexpr int kWideF32Ld = kWideF32Rows + 4;         // k-major row stride
+constexpr int kWideMax = 272;                 // widest layer the wide kernels take
+constexpr int kWideF32Rows = 64;              // f32 rows of a CTA's tile
+constexpr int kWideF32Ld = kWideF32Rows + 4;  // k-major row stride
 constexpr int kWideF32Threads = 256;
-constexpr int kDwTile = 128;                         // bf16 dW tile (din x dout) of one CTA
-constexpr int kDwWarps = 8;                          // 4 x 2 warps of 32 x 64
-constexpr int kDwRows = 32;                          // bf16 rows per staged step of dW
-constexpr int kDwLd = kDwTile + kPad;
-constexpr int kDwF32Tile = 64;                       // f32 dW tile of one CTA
+constexpr int kDwF32Tile = 64;                // f32 dW tile of one CTA
 constexpr int kDwF32Rows = 32;
 constexpr int kDwF32Ld = kDwF32Tile + 4;
 
-constexpr size_t kWideBf16Smem = size_t(kWideRows + 2 * kWideKc) * kWideLd * sizeof(bf16);
 constexpr size_t kWideF32Smem = 2 * size_t(kWideMax) * kWideF32Ld * sizeof(float);
 
-// A chain of `steps` products over the rows: out_s = epilogue(in_s @ B_s),
-// in_0 the kernel's input, in_{s+1} = round(out_s).
+// f32: a chain of `steps` products over the rows: out_s = epilogue(in_s @
+// B_s), in_0 the kernel's input, in_{s+1} = out_s.
 struct WideChain {
-  const void* w[kMaxLayers];     // B_s [k[s]][n[s]], row-major, in the dtype
+  const void* w[kMaxLayers];     // B_s [k[s]][n[s]], row-major
   int k[kMaxLayers];
   int n[kMaxLayers];
   int steps;
   unsigned relu;                 // bit s: ReLU on out_s
   const void* mask[kMaxLayers];  // or null: out_s times (mask > 0), mask [m][n[s]]
-  float* gout[kMaxLayers];       // or null: out_s in f32 [m][n[s]], before rounding
-  void* dst[kMaxLayers];         // or null: round(out_s) [m][n[s]]
+  float* gout[kMaxLayers];       // or null: out_s [m][n[s]]
+  void* dst[kMaxLayers];         // or null: out_s [m][n[s]]
 };
-
-__global__ void __launch_bounds__(kWideWarps * 32, 1)
-fused_mlp_wide_bf16_kernel(const bf16* __restrict__ in, WideChain c, long long m) {
-  extern __shared__ __align__(16) bf16 smem[];
-  bf16* act = smem;                         // [kWideRows][kWideLd]
-  bf16* wbuf = smem + kWideRows * kWideLd;  // 2 x [kWideKc][kWideLd]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, half = warp >> 2;
-  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, t = lane & 3;
-  const long long row0 = (long long)blockIdx.x * kWideRows;
-
-  {  // the input tile; rows past m are zeroed
-    const int k0 = c.k[0], c8 = k0 / 8;
-    for (int i = threadIdx.x; i < kWideRows * c8; i += blockDim.x) {
-      const int r = i / c8, j = i - r * c8;
-      const long long row = row0 + r;
-      const bool ok = row < m;
-      cp_async16(smem_addr(act + r * kWideLd + 8 * j), in + (ok ? row : 0) * k0 + 8 * j,
-                 ok ? 16 : 0);
-    }
-  }
-  // weight chunks in the order the steps take them; (ls, lk) loads next
-  int ls = 0, lk = 0;
-  auto load_next = [&](int b) {
-    if (ls >= c.steps) return;
-    const bf16* w = static_cast<const bf16*>(c.w[ls]);
-    const int n = c.n[ls], n8 = n / 8;
-    const int rows = min(kWideKc, c.k[ls] - lk);
-    bf16* dst = wbuf + b * kWideKc * kWideLd;
-    for (int i = threadIdx.x; i < rows * n8; i += blockDim.x) {
-      const int r = i / n8, j = i - r * n8;
-      cp_async16(smem_addr(dst + r * kWideLd + 8 * j), w + (long long)(lk + r) * n + 8 * j, 16);
-    }
-    lk += kWideKc;
-    if (lk >= c.k[ls]) {
-      lk = 0;
-      ++ls;
-    }
-  };
-  load_next(0);
-  cp_async_commit();
-
-  int buf = 0;
-  for (int s = 0; s < c.steps; ++s) {
-    const int K = c.k[s], N = c.n[s];
-    const int pairs = N / 16, split = (pairs + 1) / 2;
-    const int p0 = half ? split : 0, np = half ? pairs - split : split;
-    float acc[2][2 * kWidePairs][4];
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int j = 0; j < 2 * kWidePairs; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[st][j][e] = 0.f;
-
-    for (int kc = 0; kc < K; kc += kWideKc, buf ^= 1) {
-      load_next(buf ^ 1);
-      cp_async_commit();
-      cp_async_wait_1();
-      __syncthreads();
-      const bf16* wb = wbuf + buf * kWideKc * kWideLd;
-      const uint32_t bbase =
-          smem_addr(wb + ((q & 1) * 8 + r8) * kWideLd + (q >> 1) * 8 + 16 * p0);
-#pragma unroll
-      for (int kk = 0; kk < kWideKc; kk += 16) {
-        if (kc + kk >= K) break;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int st = 0; st < 2; ++st)
-          ldsm_x4(a[st], smem_addr(act + (32 * rg + 16 * st + (lane & 15)) * kWideLd + kc + kk +
-                                   (lane >> 4) * 8));
-#pragma unroll
-        for (int pp = 0; pp < kWidePairs; ++pp) {
-          if (pp >= np) break;
-          uint32_t b[4];
-          ldsm_x4_t(b, bbase + 2u * (kk * kWideLd + 16 * pp));
-#pragma unroll
-          for (int st = 0; st < 2; ++st) {
-            mma_bf16(acc[st][2 * pp], a[st], b[0], b[1]);
-            mma_bf16(acc[st][2 * pp + 1], a[st], b[2], b[3]);
-          }
-        }
-      }
-      __syncthreads();  // every warp is done with this chunk (after the last, with act)
-    }
-
-    // epilogue, in place over act
-    const bool relu_s = (c.relu >> s) & 1u;
-    const bf16* mk = static_cast<const bf16*>(c.mask[s]);
-    float* go = c.gout[s];
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int pp = 0; pp < kWidePairs; ++pp) {
-        if (pp >= np) break;
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int rl = 32 * rg + 16 * st + g + 8 * e;
-            const int col = 16 * (p0 + pp) + 8 * h + 2 * t;
-            const long long row = row0 + rl;
-            float v0 = acc[st][2 * pp + h][2 * e], v1 = acc[st][2 * pp + h][2 * e + 1];
-            if (relu_s) {
-              v0 = relu(v0);
-              v1 = relu(v1);
-            }
-            if (row < m) {
-              if (mk) {  // a product, so a non-finite value stays non-finite
-                const float2 p =
-                    unpack_bf16(*reinterpret_cast<const uint32_t*>(mk + row * N + col));
-                v0 *= p.x > 0.f ? 1.f : 0.f;
-                v1 *= p.y > 0.f ? 1.f : 0.f;
-              }
-              if (go) *reinterpret_cast<float2*>(go + row * N + col) = make_float2(v0, v1);
-            }
-            *reinterpret_cast<uint32_t*>(act + rl * kWideLd + col) = pack_bf16(v0, v1);
-          }
-      }
-    if (c.dst[s]) {  // the rounded output by 16-byte stores of the rows < m
-      __syncthreads();
-      bf16* d = static_cast<bf16*>(c.dst[s]);
-      const int n8 = N / 8;
-      for (int i = threadIdx.x; i < kWideRows * n8; i += blockDim.x) {
-        const int r = i / n8, j = i - r * n8;
-        const long long row = row0 + r;
-        if (row < m)
-          *reinterpret_cast<uint4*>(d + row * N + 8 * j) =
-              *reinterpret_cast<const uint4*>(act + r * kWideLd + 8 * j);
-      }
-    }
-  }
-  cp_async_wait_0();
-}
 
 __global__ void __launch_bounds__(kWideF32Threads, 1)
 fused_mlp_wide_f32_kernel(const float* __restrict__ in, WideChain c, long long m) {
@@ -1092,19 +990,16 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ in, WideChain c, long long m
   }
 }
 
-// dW_i = post_i^T g_i of every layer, one tile x tile block of one layer per
-// CTA (blockIdx.x over all layers' tiles) and one row split per blockIdx.y,
-// into partial[split][the concatenated dW]. A larger tile reads post_i and
-// g_i fewer times: at 272 wide, 128 x 128 tiles read each 3 times, 64 x 64
-// ones 5 times.
+// f32: dW_i = post_i^T g_i of every layer, one 64 x 64 block of one layer
+// per CTA (blockIdx.x over all layers' tiles) and one row split per
+// blockIdx.y, into partial[split][the concatenated dW].
 struct WideDw {
-  const void* post[kMaxLayers];  // post_i [m][width[i]] in the dtype (post_0 = x)
-  const void* g[kMaxLayers];     // g_i [m][width[i+1]]: f32, except the top layer's in bf16
+  const void* post[kMaxLayers];  // post_i [m][width[i]] (post_0 = x)
+  const void* g[kMaxLayers];     // g_i [m][width[i+1]]
   int width[kMaxLayers + 1];
   int n_layers;
   int dw_off[kMaxLayers];
   int dw_floats;
-  int tile;                      // kDwTile (bf16) or kDwF32Tile
   int tile_off[kMaxLayers + 1];
   long long rows_per_split;
 };
@@ -1120,128 +1015,13 @@ __device__ __forceinline__ DwTile dw_tile(const WideDw& d, long long m) {
   while (int(blockIdx.x) >= d.tile_off[tl.l + 1]) ++tl.l;
   tl.din = d.width[tl.l];
   tl.dout = d.width[tl.l + 1];
-  const int tn = (tl.dout + d.tile - 1) / d.tile;
+  const int tn = (tl.dout + kDwF32Tile - 1) / kDwF32Tile;
   const int lt = blockIdx.x - d.tile_off[tl.l];
-  tl.k0 = d.tile * (lt / tn);
-  tl.c0 = d.tile * (lt % tn);
+  tl.k0 = kDwF32Tile * (lt / tn);
+  tl.c0 = kDwF32Tile * (lt % tn);
   tl.rbeg = blockIdx.y * d.rows_per_split;
   tl.rend = min(m, tl.rbeg + d.rows_per_split);
   return tl;
-}
-
-// bf16 rows [rc, rc + kDwRows) x columns [c0, c0 + kDwTile) of a [m][d]
-// matrix -> shared [kDwRows][kDwLd]; zeros outside the rows and columns
-__device__ __forceinline__ void stage_dw_bf16(bf16* dst, const bf16* src, int d, int c0,
-                                              long long rc, long long rend) {
-  for (int i = threadIdx.x; i < kDwRows * (kDwTile / 8); i += blockDim.x) {
-    const int r = i / (kDwTile / 8), j = i % (kDwTile / 8);
-    const long long row = rc + r;
-    const int col = c0 + 8 * j;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rend && col < d) v = *reinterpret_cast<const uint4*>(src + row * d + col);
-    *reinterpret_cast<uint4*>(dst + r * kDwLd + 8 * j) = v;
-  }
-}
-
-// v0, v1 -> their bf16 head and the bf16 rounding of the rest
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16(v0, v1);
-  const float2 hf = unpack_bf16(hi);
-  // a non-finite head (NaN, inf, overflow) carries the value alone
-  lo = pack_bf16(fabsf(hf.x) <= 3.0e38f ? v0 - hf.x : 0.f,
-                 fabsf(hf.y) <= 3.0e38f ? v1 - hf.y : 0.f);
-}
-
-__global__ void __launch_bounds__(kDwWarps * 32)
-fused_mlp_wide_dw_bf16_kernel(WideDw d, long long m, float* __restrict__ partial) {
-  __shared__ __align__(16) bf16 ps[kDwRows * kDwLd];
-  __shared__ __align__(16) bf16 gh[kDwRows * kDwLd];
-  __shared__ __align__(16) bf16 gl[kDwRows * kDwLd];
-  const DwTile tl = dw_tile(d, m);
-  const bool gf32 = tl.l + 1 < d.n_layers;  // the top layer's g arrives rounded: g_lo = 0
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;  // a 32 x 64 block of the tile
-  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, t = lane & 3;
-  bool mv[2], nv[4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) mv[i] = tl.k0 + 32 * wm + 16 * i < tl.din;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) nv[p] = tl.c0 + 64 * wn + 16 * p < tl.dout;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (long long rc = tl.rbeg; rc < tl.rend; rc += kDwRows) {
-    stage_dw_bf16(ps, static_cast<const bf16*>(d.post[tl.l]), tl.din, tl.k0, rc, tl.rend);
-    if (gf32) {
-      const float* G = static_cast<const float*>(d.g[tl.l]);
-      for (int i = threadIdx.x; i < kDwRows * (kDwTile / 4); i += blockDim.x) {
-        const int r = i / (kDwTile / 4), j = i % (kDwTile / 4);
-        const long long row = rc + r;
-        const int col = tl.c0 + 4 * j;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < tl.rend && col < tl.dout)
-          v = *reinterpret_cast<const float4*>(G + row * tl.dout + col);
-        uint2 hi, lo;
-        split_bf16(v.x, v.y, hi.x, lo.x);
-        split_bf16(v.z, v.w, hi.y, lo.y);
-        *reinterpret_cast<uint2*>(gh + r * kDwLd + 4 * j) = hi;
-        *reinterpret_cast<uint2*>(gl + r * kDwLd + 4 * j) = lo;
-      }
-    } else {
-      stage_dw_bf16(gh, static_cast<const bf16*>(d.g[tl.l]), tl.dout, tl.c0, rc, tl.rend);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kr = 0; kr < kDwRows / 16; ++kr) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (mv[i])
-          ldsm_x4_t(a[i], smem_addr(ps + (16 * kr + (q >> 1) * 8 + r8) * kDwLd + 32 * wm +
-                                    16 * i + (q & 1) * 8));
-#pragma unroll
-      for (int pp = 0; pp < 4; ++pp) {
-        if (!nv[pp]) continue;
-        const int off = (16 * kr + (q & 1) * 8 + r8) * kDwLd + 64 * wn + 16 * pp + (q >> 1) * 8;
-        uint32_t b[4];
-        ldsm_x4_t(b, smem_addr(gh + off));
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (mv[i]) {
-            mma_bf16(acc[i][2 * pp], a[i], b[0], b[1]);
-            mma_bf16(acc[i][2 * pp + 1], a[i], b[2], b[3]);
-          }
-        if (gf32) {
-          ldsm_x4_t(b, smem_addr(gl + off));
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (mv[i]) {
-              mma_bf16(acc[i][2 * pp], a[i], b[0], b[1]);
-              mma_bf16(acc[i][2 * pp + 1], a[i], b[2], b[3]);
-            }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = partial + (long long)blockIdx.y * d.dw_floats + d.dw_off[tl.l];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (!mv[i] || !nv[j >> 1]) continue;
-      const int row = tl.k0 + 32 * wm + 16 * i + g;
-      const int col = tl.c0 + 64 * wn + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(out + row * tl.dout + col) = make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(out + (row + 8) * tl.dout + col) =
-          make_float2(acc[i][j][2], acc[i][j][3]);
-    }
 }
 
 __global__ void __launch_bounds__(256)
@@ -1291,6 +1071,486 @@ fused_mlp_wide_dw_f32_kernel(WideDw d, long long m, float* __restrict__ partial)
   }
 }
 
+// v0, v1 -> their bf16 head and the bf16 rounding of the rest
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(v0, v1);
+  const float2 hf = unpack_bf16(hi);
+  // a non-finite head (NaN, inf, overflow) carries the value alone
+  lo = pack_bf16(fabsf(hf.x) <= 3.0e38f ? v0 - hf.x : 0.f,
+                 fabsf(hf.y) <= 3.0e38f ? v1 - hf.y : 0.f);
+}
+
+// ---- bf16 wide kernels (wgmma) ----
+
+namespace hp = hopper;
+
+constexpr int kWgThreads = 128;               // a warpgroup
+constexpr int kWsThreads = 3 * kWgThreads;    // producer warpgroup + two consumer warpgroups
+constexpr int kBlk = 64;                      // rows of a consumer warpgroup's block
+constexpr int kTile = 2 * kBlk;               // rows of a CTA's tile
+constexpr int kQ = kBlk / 8;                  // 8-row groups of a block
+constexpr uint32_t kCell = 128;               // one core matrix: 8 rows x 8 columns of bf16
+constexpr uint32_t kActBytes = kBlk * kWideMax * 2;  // a warpgroup's block, 272 wide
+constexpr int kChunkK = 64;                   // weight rows (k) per ring slot
+constexpr int kStages = 3;
+constexpr int kBoxN = 64;                     // W [k][n]: boxes of 64 n (128 B, swizzled) x 64 k
+constexpr uint32_t kMnBoxBytes = kChunkK * 128;
+constexpr int kKBoxRows = 136;                // W [n][k]: boxes of 64 k (128 B) x 136 n
+constexpr uint32_t kKBoxBytes = kKBoxRows * 128;
+constexpr uint32_t kSlotBytes = ((kWideMax + kBoxN - 1) / kBoxN) * kMnBoxBytes;
+static_assert(2 * kKBoxBytes <= kSlotBytes, "both chunk layouts fit a slot");
+constexpr int kDwRows = 32;                   // dW: rows (K) per ring slot
+constexpr int kDwQ = kDwRows / 8;
+constexpr int kDwSlice = 2 * kBlk;            // dW: din rows of one CTA
+constexpr uint32_t kDwPostBytes = kDwQ * (kDwSlice / 8) * kCell;
+constexpr uint32_t kDwPlaneBytes = kDwQ * (kWideMax / 8) * kCell;
+constexpr uint32_t kDwSlotBytes = kDwPostBytes + 2 * kDwPlaneBytes;  // post, g_hi, g_lo
+constexpr int kDwStages = 4;
+constexpr int kRegsProducer = 56, kRegsConsumer = 224;
+
+constexpr size_t kChainSmem = 1024 + 2 * size_t(kActBytes) + kStages * size_t(kSlotBytes) +
+                              (2 * kStages + 2) * 8;
+constexpr size_t kDwSmem = 1024 + kDwStages * size_t(kDwSlotBytes) + 2 * kDwStages * 8;
+
+// The accumulators of a warpgroup's 64 rows x up to 272 columns: wgmma
+// m64n256 into a (m64n64 into its first 32 for N <= 64) and m64n16 into b
+// for columns 256..271. Fragment layout of both: for each 8-column group j,
+// [4j + 2e + i] is row 16 * warp + lane / 4 + 8e, column 8j + 2 (lane % 4) + i.
+struct Acc {
+  float a[128];
+  float b[8];
+};
+
+// the wgmma a product of N columns takes: 0 (N <= 64), 1 (N <= 256), 2
+__host__ __device__ constexpr int wgmma_kind(int n) { return n <= 64 ? 0 : n <= 256 ? 1 : 2; }
+
+template <int TA, int TB, int NI>
+__device__ __forceinline__ void mma(Acc& acc, uint64_t da, uint64_t db, uint64_t db16,
+                                    int scale) {
+  if (NI == 0)
+    hp::wgmma_m64n64k16<TA, TB>(reinterpret_cast<float(&)[32]>(acc.a), da, db, scale);
+  else
+    hp::wgmma_m64n256k16<TA, TB>(acc.a, da, db, scale);
+  if (NI == 2) hp::wgmma_m64n16k16<TA, TB>(acc.b, da, db16, scale);
+}
+
+__device__ __forceinline__ void acc_fence(Acc& acc) {
+  hp::reg_fence(acc.a);
+  hp::reg_fence(acc.b);
+}
+
+// accumulators of 8-column group gi (compile-time), row half e, columns 2 (lane % 4) + {0, 1}
+__device__ __forceinline__ float2 acc_pair(const Acc& acc, int gi, int e) {
+  return gi < 32 ? make_float2(acc.a[4 * gi + 2 * e], acc.a[4 * gi + 2 * e + 1])
+                 : make_float2(acc.b[4 * (gi - 32) + 2 * e], acc.b[4 * (gi - 32) + 2 * e + 1]);
+}
+
+// Layout of a 64-row block of width w, in shared memory and in the backward's
+// scratch planes alike: [8-row group q][w/8 column groups][8 rows][8 columns]
+// of bf16, each [8][8] cell one wgmma core matrix (128 contiguous bytes).
+// Row r, column c of the block is element (r/8) * 8w + (c/8) * 64 + (r%8) * 8
+// + c%8. A plane is its blocks one after another.
+__device__ __forceinline__ int cell_off(int w, int q, int gi) { return q * 8 * w + gi * 64; }
+
+// One step of a bf16 chain: out = A_s @ B_s over a warpgroup's 64 rows, then
+// the epilogue.
+struct ChainStep {
+  int k, n;          // B_s is k x n
+  int relu;          // forward: ReLU on the product
+  uint32_t* bits;    // or null: forward, writes round(out) > 0 to a bit plane; dgrad,
+                     // reads the mask (times 1 or 0) from one
+  bf16* hi;          // or null: round(out) to an [n] plane
+  bf16* lo;          // dgrad: or null, bf16(out - round(out)) to an [n] plane
+};
+
+// A bit plane holds, per 64-row block, each consumer thread's 136 bits of
+// (column group gi, row half e, column i) > 0, bit (2 gi + e) * 2 + i, in
+// kBitWords words, word-major: [block][word][128 threads]. The forward writes
+// it where the dgrad, whose threads hold the same elements, reads it: 2.5 KB
+// a block against the 34 KB of the post-activations themselves.
+constexpr int kBitWords = (kWideMax / 8 * 4 + 31) / 32;
+__host__ __device__ constexpr long long bit_plane_words(long long blocks) {
+  return blocks * kBitWords * kWgThreads;
+}
+
+// bf16 bits h > 0 (not NaN, not -0)
+__device__ __forceinline__ uint32_t bf16_positive(uint32_t h) { return h - 1u < 0x7F80u; }
+
+// A chain of one kind: 0 (the forward) and 2 (the backward's recompute,
+// which also writes the bit planes) read W [k][n]; 1 (the dgrad) reads
+// W [n][k], masks and splits.
+struct ChainArgs {
+  CUtensorMap w[kMaxLayers];  // B_s's weight: boxes of 64 x 64 (W [k][n]) or 64 x 136 (W [n][k])
+  CUtensorMap in;             // the input [m][k0] as (8 columns, rows, k0/8 groups), 8 x 8 x k0/8
+  CUtensorMap out;            // round(out) of the last step [m][n] when has_out, as in
+  ChainStep st[kMaxLayers];
+  bf16* in_copy;              // or null: the input to a [k0] plane
+  long long m;
+  int steps, k0, has_out;
+};
+
+// The producer warp: every step's weight chunks of every tile the CTA takes,
+// in the order the consumers use them, into the ring. Rows past the weight
+// arrive as zeros and count.
+template <int KIND>
+__device__ __forceinline__ void chain_producer(const ChainArgs& a, uint32_t ring, uint32_t bars,
+                                               long long tiles) {
+  const int lane = threadIdx.x & 31;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x)
+    for (int s = 0; s < a.steps; ++s) {
+      const ChainStep& st = a.st[s];
+      const bool kmajor = KIND == 1;
+      const int boxes = kmajor ? (st.n + kKBoxRows - 1) / kKBoxRows : (st.n + kBoxN - 1) / kBoxN;
+      for (int kc = 0; kc < st.k; kc += kChunkK) {
+        hp::mbar_wait(bars + 8u * (kStages + slot), phase ^ 1);
+        const uint32_t dst = ring + slot * kSlotBytes, full = bars + 8u * slot;
+        if (lane == 0) hp::mbar_expect_tx(full, boxes * (kmajor ? kKBoxBytes : kMnBoxBytes));
+        __syncwarp();
+        if (lane < boxes) {
+          if (kmajor)  // [272 n][64 k]: rows continue from box to box
+            hp::tma_load_2d(dst + lane * kKBoxBytes, &a.w[s], kc, kKBoxRows * lane, full);
+          else         // [n / 64][64 k][64 n]
+            hp::tma_load_2d(dst + lane * kMnBoxBytes, &a.w[s], kBoxN * lane, kc, full);
+        }
+        if (++slot == kStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+}
+
+// acc = A @ B_s for a consumer warpgroup's block `act`, over the step's
+// chunks in the ring. TB: 1 for W [k][n] (MN-major B), 0 for W [n][k]; NI:
+// wgmma_kind(n).
+template <int TB, int NI>
+__device__ __forceinline__ void chain_mma(Acc& acc, const ChainStep& st, uint32_t act,
+                                          uint32_t ring, uint32_t bars, int& slot,
+                                          uint32_t& phase) {
+  const bool signal = (threadIdx.x & 31) == 0;  // one arrival per warp
+  const uint32_t q_stride = st.k / 8 * kCell;   // A: between 8-row groups
+  int prev = -1;
+  acc_fence(acc);
+  for (int kc = 0; kc < st.k; kc += kChunkK) {
+    hp::mbar_wait(bars + 8u * slot, phase);
+    const uint32_t b = ring + slot * kSlotBytes;
+    const int nks = min(kChunkK, st.k - kc) / 16;
+    hp::wgmma_fence();
+#pragma unroll 1
+    for (int ks = 0; ks < nks; ++ks) {
+      // A: core matrices 128 B apart along k, q_stride along rows
+      const uint64_t da = hp::gmma_desc(act + (kc + 16 * ks) / 8 * kCell, kCell, q_stride);
+      uint64_t db, db16;
+      if (TB) {  // 64-column blocks 8 KB apart, 8-row groups 1 KB apart
+        db = hp::gmma_desc(b + 2048 * ks, kMnBoxBytes, 1024, true);
+        db16 = hp::gmma_desc(b + 4 * kMnBoxBytes + 2048 * ks, kMnBoxBytes, 1024, true);
+      } else {  // 8-row groups 1 KB apart, k16 at 32 bytes within the row
+        db = hp::gmma_desc(b + 32 * ks, 16, 1024, true);
+        db16 = hp::gmma_desc(b + 256 * 128 + 32 * ks, 16, 1024, true);
+      }
+      mma<0, TB, NI>(acc, da, db, db16, kc + ks > 0);  // the first product overwrites acc
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();  // the previous chunk's products are done: free its slot
+    if (prev >= 0 && signal) hp::mbar_arrive(bars + 8u * (kStages + prev));
+    prev = slot;
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  hp::wgmma_wait<0>();
+  acc_fence(acc);
+  if (prev >= 0 && signal) hp::mbar_arrive(bars + 8u * (kStages + prev));
+}
+
+// A consumer warpgroup: the 64-row block `c` of each tile, every step.
+template <int KIND>
+__device__ __forceinline__ void chain_consumer(const ChainArgs& a, uint32_t act, uint32_t ring,
+                                               uint32_t bars, int c, long long tiles) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+  const bool leader = tid == 0;
+  const uint32_t in_bar = bars + 8u * (2 * kStages + c);
+  const uint32_t bar_id = 1 + c;  // the warpgroup's named barrier
+  // the thread's accumulators: rows 16 warp + lane / 4 + 8e (8-row group
+  // 2 warp + e, row lane / 4 in it), columns cq, cq + 1 of each group
+  const int rq = lane >> 2, cq = 2 * (lane & 3);
+  int slot = 0;
+  uint32_t phase = 0, in_phase = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * kTile + c * kBlk, blk = row0 / kBlk;
+    if (leader) {  // the input block, once the last stores have read the block
+      hp::bulk_wait_read();
+      hp::mbar_expect_tx(in_bar, a.k0 * kBlk * 2);
+      for (int q = 0; q < kQ; ++q)
+        hp::tma_load_3d(act + q * (a.k0 / 8) * kCell, &a.in, 0, int(row0) + 8 * q, 0, in_bar);
+    }
+    hp::mbar_wait(in_bar, in_phase);
+    in_phase ^= 1;
+    if (leader && a.in_copy) {
+      hp::bulk_store(a.in_copy + blk * kBlk * a.k0, act, a.k0 * kBlk * 2);
+      hp::bulk_commit();
+    }
+    for (int s = 0; s < a.steps; ++s) {
+      const ChainStep& st = a.st[s];
+      const int groups = st.n / 8;
+      const long long boff = blk * kBlk * st.n;  // the block in an [n] plane
+      // the thread's words of the step's bit plane: the dgrad's mask, loaded
+      // while the products run (all ones without a mask)
+      uint32_t* bits = st.bits ? st.bits + bit_plane_words(blk) + tid : nullptr;
+      uint32_t wb[kBitWords];
+#pragma unroll
+      for (int k = 0; k < kBitWords; ++k)
+        wb[k] = KIND == 1 ? hp::ld_global_if(bits + k * kWgThreads, bits != nullptr, ~0u) : 0u;
+      Acc acc;
+      const int kind = wgmma_kind(st.n);
+      constexpr int TB = KIND == 1 ? 0 : 1;
+      if (kind == 2) chain_mma<TB, 2>(acc, st, act, ring, bars, slot, phase);
+      else if (kind == 1) chain_mma<TB, 1>(acc, st, act, ring, bars, slot, phase);
+      else chain_mma<TB, 0>(acc, st, act, ring, bars, slot, phase);
+
+      // epilogue, in place over the block (now [8-row group][n/8][8][8]) once
+      // its last stores have read it; straight-line over all 34 column
+      // groups, the accesses predicated
+      if (leader) hp::bulk_wait_read();
+      hp::named_barrier(bar_id, kWgThreads);
+      const bool relu_on = st.relu, has_lo = st.lo != nullptr;
+#pragma unroll
+      for (int gi = 0; gi < kWideMax / 8; ++gi)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int off = cell_off(st.n, 2 * warp + e, gi) + rq * 8 + cq;
+          const bool in = gi < groups;
+          const int b = (2 * gi + e) * 2;  // the pair's bits in the plane
+          float2 v = acc_pair(acc, gi, e);
+          uint32_t hi;
+          if (KIND != 1) {
+            v.x = relu_on && v.x < 0.f ? 0.f : v.x;
+            v.y = relu_on && v.y < 0.f ? 0.f : v.y;
+            hi = pack_bf16(v.x, v.y);
+            if (KIND == 2)
+              wb[b / 32] |= (bf16_positive(hi & 0xFFFFu) | bf16_positive(hi >> 16) << 1) << (b % 32);
+          } else {  // times the mask: a product, so a non-finite value stays non-finite
+            v.x *= (wb[b / 32] >> (b % 32)) & 1u ? 1.f : 0.f;
+            v.y *= (wb[b / 32] >> (b % 32 + 1)) & 1u ? 1.f : 0.f;
+            uint32_t lo;
+            split_bf16(v.x, v.y, hi, lo);
+            hp::st_global_if(st.lo + boff + off, lo, has_lo && in);
+          }
+          hp::st_shared_if(act + 2 * off, hi, in);
+        }
+      if (KIND == 2 && bits)
+#pragma unroll
+        for (int k = 0; k < kBitWords; ++k) bits[k * kWgThreads] = wb[k];
+      hp::fence_async_shared();
+      hp::named_barrier(bar_id, kWgThreads);
+      if (leader) {
+        if (st.hi) hp::bulk_store(st.hi + boff, act, st.n * kBlk * 2);
+        if (a.has_out && s + 1 == a.steps)
+          for (int q = 0; q < kQ; ++q)
+            hp::tma_store_3d(&a.out, act + q * groups * kCell, 0, int(row0) + 8 * q, 0);
+        hp::bulk_commit();
+      }
+    }
+  }
+  if (leader) hp::bulk_wait();
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kWsThreads, 1)
+fused_mlp_wide_bf16_kernel(const __grid_constant__ ChainArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = base + 2 * kActBytes;
+  const uint32_t bars = ring + kStages * kSlotBytes;  // full[kStages], empty[kStages], in[2]
+  const long long tiles = (a.m + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(bars + 8u * s, 1);
+      hp::mbar_init(bars + 8u * (kStages + s), 2 * kWgThreads / 32);
+    }
+    hp::mbar_init(bars + 8u * 2 * kStages, 1);
+    hp::mbar_init(bars + 8u * (2 * kStages + 1), 1);
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    hp::regs_dec<kRegsProducer>();
+    if (threadIdx.x < 32) chain_producer<KIND>(a, ring, bars, tiles);
+  } else {
+    hp::regs_inc<kRegsConsumer>();
+    chain_consumer<KIND>(a, base + (wg - 1) * kActBytes, ring, bars, wg - 1, tiles);
+  }
+}
+
+// One layer of the bf16 dW product. Planes are blocked, as the chain's; a
+// ring slot takes 32 rows (four 8-row groups) of a 64-row block: of g, one
+// contiguous piece; of post, the CTA's din slice of each 8-row group.
+struct DwLayer {
+  const bf16* post;  // [din] plane of post_i (post_0 = x)
+  const bf16* hi;    // [dout] planes of g_i's bf16 head
+  const bf16* lo;    // and of the rest; null for the top layer (g arrives rounded)
+  int din, dout, dw_off;
+};
+
+struct DwArgs {
+  DwLayer l[kMaxLayers];
+  float* partial;        // [splits][dw_floats]
+  long long blocks;      // 64-row blocks to sum over
+  long long per_split;   // blocks of one row split (blockIdx.y)
+  int dw_floats;
+  int slices;            // CTAs of one layer along din (blockIdx.x = layer x slices + slice)
+};
+
+// acc += post^T g over a slot's 32 rows: post [4 row groups][16 din groups]
+// (A) and the g planes [4 row groups][dout/8] (B) of [8 rows][8] cells, both
+// MN-major, with the 8-row groups along K
+template <int NI>
+__device__ __forceinline__ void dw_mma(Acc& acc, uint32_t s0, int c, int gout, bool has_lo) {
+  const uint32_t g_q = gout * kCell;  // B: between 8-row groups
+#pragma unroll
+  for (int ks = 0; ks < kDwRows / 16; ++ks) {
+    const uint64_t da = hp::gmma_desc(s0 + 8 * c * kCell + 2 * ks * (kDwSlice / 8) * kCell,
+                                      (kDwSlice / 8) * kCell, kCell);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (p == 1 && !has_lo) break;
+      const uint32_t g0 = s0 + kDwPostBytes + p * kDwPlaneBytes + 2 * ks * g_q;
+      mma<1, 1, NI>(acc, da, hp::gmma_desc(g0, g_q, kCell),
+                    hp::gmma_desc(g0 + 32 * kCell, g_q, kCell), 1);
+    }
+  }
+}
+
+// dW_i rows [128 slice, 128 slice + 128) x all columns of one layer, over
+// the row split blockIdx.y, 32 rows per ring slot. Launched in clusters of
+// the layer's slices, the first CTA multicasts the g pieces to the others and
+// every consumer warp frees a slot on its own CTA's empty barrier and on the
+// first CTA's; without a cluster each CTA loads its own.
+__global__ void __launch_bounds__(kWsThreads, 1)
+fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kDwStages * kDwSlotBytes;  // full[kDwStages], empty[kDwStages]
+  const bool shared = hp::cluster_size() > 1;
+  const int rank = int(blockIdx.x) % a.slices;               // the slice (and cluster rank)
+  const DwLayer& L = a.l[blockIdx.x / a.slices];
+  const int n_active = (L.din + kDwSlice - 1) / kDwSlice;  // slices with rows
+  const bool active = rank < n_active;
+  constexpr int kParts = kBlk / kDwRows;                    // slots of a 64-row block
+  const long long h0 = kParts * blockIdx.y * a.per_split;  // the split's slots
+  const long long h1 = kParts * min(a.blocks, (blockIdx.y + 1) * a.per_split);
+  const int warps_per_cta = 2 * kWgThreads / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      hp::mbar_init(bars + 8u * s, 1);
+      hp::mbar_init(bars + 8u * (kDwStages + s),
+                    (shared && rank == 0 ? n_active : 1) * warps_per_cta);
+    }
+    hp::mbar_init_fence();
+  }
+  hp::cluster_sync();  // every barrier of the cluster is ready
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    hp::regs_dec<kRegsProducer>();
+    if (active && threadIdx.x == 0) {
+      const int gin = L.din / 8, gout = L.dout / 8, planes = L.lo ? 2 : 1;
+      const int np = min(kDwSlice / 8, gin - kDwSlice / 8 * rank);  // the CTA's din groups
+      const uint32_t g_bytes = kDwQ * gout * kCell;
+      const uint16_t ctas = uint16_t((1u << n_active) - 1);
+      int slot = 0;
+      uint32_t phase = 0;
+      for (long long h = h0; h < h1; ++h) {
+        hp::mbar_wait_cluster(bars + 8u * (kDwStages + slot), phase ^ 1);
+        const uint32_t dst = base + slot * kDwSlotBytes, full = bars + 8u * slot;
+        const long long blk = h / kParts;
+        const int q0 = kDwQ * int(h % kParts);
+        hp::mbar_expect_tx(full, kDwQ * np * kCell + planes * g_bytes);
+        for (int q = 0; q < kDwQ; ++q)
+          hp::bulk_load(dst + q * (kDwSlice / 8) * kCell,
+                        L.post + blk * kBlk * L.din + cell_off(L.din, q0 + q, kDwSlice / 8 * rank),
+                        np * kCell, full);
+        if (!shared || rank == 0)
+          for (int p = 0; p < planes; ++p) {
+            const bf16* src = (p ? L.lo : L.hi) + blk * kBlk * L.dout + cell_off(L.dout, q0, 0);
+            const uint32_t to = dst + kDwPostBytes + p * kDwPlaneBytes;
+            if (shared && n_active > 1)
+              hp::bulk_load_multicast(to, src, g_bytes, full, ctas);
+            else
+              hp::bulk_load(to, src, g_bytes, full);
+          }
+        if (++slot == kDwStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    __syncwarp();
+    hp::cluster_sync();  // no CTA leaves while another may still signal it
+  } else {
+    hp::regs_inc<kRegsConsumer>();
+    const int c = wg - 1, tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+    const int m0 = kDwSlice * rank + kBlk * c;  // the warpgroup's first din row
+    const bool computes = active && m0 < L.din;
+    const int kind = wgmma_kind(L.dout), gout = L.dout / 8;
+    const bool signal = lane == 0, has_lo = L.lo != nullptr;
+    Acc acc;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc.a[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc.b[i] = 0.f;
+    auto release = [&](int s) {
+      if (!signal) return;
+      hp::mbar_arrive(bars + 8u * (kDwStages + s));
+      if (shared && rank != 0) hp::mbar_arrive_cluster(bars + 8u * (kDwStages + s), 0);
+    };
+    if (active) {
+      int slot = 0, prev = -1;
+      uint32_t phase = 0;
+      acc_fence(acc);
+      for (long long h = h0; h < h1; ++h) {
+        hp::mbar_wait(bars + 8u * slot, phase);
+        if (computes) {
+          const uint32_t s0 = base + slot * kDwSlotBytes;
+          hp::wgmma_fence();
+          if (kind == 2) dw_mma<2>(acc, s0, c, gout, has_lo);
+          else if (kind == 1) dw_mma<1>(acc, s0, c, gout, has_lo);
+          else dw_mma<0>(acc, s0, c, gout, has_lo);
+          hp::wgmma_commit();
+          hp::wgmma_wait<1>();
+          if (prev >= 0) release(prev);
+          prev = slot;
+        } else {
+          release(slot);
+        }
+        if (++slot == kDwStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      hp::wgmma_wait<0>();
+      acc_fence(acc);
+      if (prev >= 0) release(prev);
+    }
+    if (computes) {  // the split's partial of the warpgroup's 64 rows
+      float* out = a.partial + blockIdx.y * (long long)a.dw_floats + L.dw_off;
+      const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+      for (int gi = 0; gi < kWideMax / 8; ++gi)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = m0 + r0 + 8 * e, col = 8 * gi + cq;
+          if (d < L.din && col < L.dout)
+            *reinterpret_cast<float2*>(out + d * L.dout + col) = acc_pair(acc, gi, e);
+        }
+    }
+    hp::cluster_sync();
+  }
+}
+
 bool wide_widths_ok(const int* widths, int n_layers) {
   if (n_layers < 1 || n_layers > kMaxLayers) return false;
   for (int i = 0; i <= n_layers; ++i)
@@ -1298,13 +1558,84 @@ bool wide_widths_ok(const int* widths, int n_layers) {
   return true;
 }
 
-int launch_chain(const void* in, const WideChain& c, long long m, int dtype, cudaStream_t s) {
-  if (dtype == 1)
-    fused_mlp_wide_bf16_kernel<<<int((m + kWideRows - 1) / kWideRows), kWideWarps * 32,
-                                 kWideBf16Smem, s>>>(static_cast<const bf16*>(in), c, m);
+int launch_chain_f32(const void* in, const WideChain& c, long long m, cudaStream_t s) {
+  fused_mlp_wide_f32_kernel<<<int((m + kWideF32Rows - 1) / kWideF32Rows), kWideF32Threads,
+                              kWideF32Smem, s>>>(static_cast<const float*>(in), c, m);
+  return int(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dimensions (innermost first; strides in bytes
+// of dimensions 1..) with boxes of `box`; returns 0, or -4 when
+// cuTensorMapEncodeTiled refuses it
+int map_bf16(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
+             const long long* strides, const int* box, bool swizzle128) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return -4;
+  cuuint64_t d[3], st[2];
+  cuuint32_t b[3], elem[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = cuuint64_t(dims[i]);
+    b[i] = cuuint32_t(box[i]);
+    if (i + 1 < rank) st[i] = cuuint64_t(strides[i]);
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d, st,
+                        b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// a row-major [rows][cols] matrix in boxes of box_cols x box_rows
+int map_matrix(CUtensorMap* map, const void* ptr, long long cols, long long rows, int box_cols,
+               int box_rows, bool swizzle128) {
+  const long long dims[2] = {cols, rows}, strides[1] = {cols * 2};
+  const int box[2] = {box_cols, box_rows};
+  return map_bf16(map, ptr, 2, dims, strides, box, swizzle128);
+}
+
+// a row-major [rows][cols] matrix as (8 columns, rows, cols/8 groups), in
+// boxes of 8 rows x all groups: one box is one 8-row group of a block
+int map_rows(CUtensorMap* map, const void* ptr, long long cols, long long rows) {
+  const long long dims[3] = {8, rows, cols / 8}, strides[2] = {cols * 2, 16};
+  const int box[3] = {8, 8, int(cols / 8)};
+  return map_bf16(map, ptr, 3, dims, strides, box, false);
+}
+
+// W_i [din][dout] as a chain step reads it: W [k][n] in 64 x 64 boxes, or
+// W [n][k] (the dgrad) in boxes of 64 k x 136 n
+int map_weight(CUtensorMap* map, const void* w, int din, int dout, bool kmajor) {
+  return map_matrix(map, w, dout, din, kmajor ? 64 : kBoxN, kmajor ? kKBoxRows : kChunkK, true);
+}
+
+int launch_chain_bf16(const ChainArgs& a, int kind, int ctas, cudaStream_t s) {
+  if (kind == 0)
+    fused_mlp_wide_bf16_kernel<0><<<ctas, kWsThreads, kChainSmem, s>>>(a);
+  else if (kind == 1)
+    fused_mlp_wide_bf16_kernel<1><<<ctas, kWsThreads, kChainSmem, s>>>(a);
   else
-    fused_mlp_wide_f32_kernel<<<int((m + kWideF32Rows - 1) / kWideF32Rows), kWideF32Threads,
-                                kWideF32Smem, s>>>(static_cast<const float*>(in), c, m);
+    fused_mlp_wide_bf16_kernel<2><<<ctas, kWsThreads, kChainSmem, s>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -1312,6 +1643,7 @@ int launch_chain(const void* in, const WideChain& c, long long m, int dtype, cud
 // host side
 
 int make_net(const void* const* weights, const int* widths, int n_layers, Net* net) {
+
   if (n_layers < 1 || n_layers > kMaxLayers) return -1;
   int max_g = 0;
   for (int i = 0; i <= n_layers; ++i) {
@@ -1456,71 +1788,120 @@ extern "C" int fused_mlp_bwd(const void* x, const void* g, void* dx, void* dw, f
   return int(cudaGetLastError());
 }
 
-// Lifts the dynamic shared-memory limit of the wide chain kernels on the
-// current device; call once per device before fused_mlp_wide_fwd/_bwd.
-// Returns 0, a cudaError_t code, or -2 when the device has too little shared
-// memory for them.
-extern "C" int fused_mlp_wide_init() {
+
+// Lifts the dynamic shared-memory limit of the wide kernels on the current
+// device and checks that a 3-CTA cluster of the dW kernel fits; call once per
+// device before fused_mlp_wide_fwd / _bwd_*. Writes the bf16 kernels'
+// dynamic shared memory (chain, dW) to *chain_smem, *dw_smem. Returns 0, a
+// cudaError_t code, -2 when the device has too little shared memory, or -3
+// when the dW kernel's clusters cannot be scheduled.
+extern "C" int fused_mlp_wide_init(int* chain_smem, int* dw_smem, int* dw_clusters) {
   int dev = 0, max_smem = 0;
   cudaError_t err;
+  *chain_smem = int(kChainSmem);
+  *dw_smem = int(kDwSmem);
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
   if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
     return int(err);
-  if (kWideBf16Smem > size_t(max_smem) || kWideF32Smem > size_t(max_smem)) return -2;
-  if ((err = cudaFuncSetAttribute(fused_mlp_wide_bf16_kernel,
+  if (kChainSmem > size_t(max_smem) || kDwSmem > size_t(max_smem) ||
+      kWideF32Smem > size_t(max_smem))
+    return -2;
+  if ((err = cudaFuncSetAttribute(fused_mlp_wide_bf16_kernel<0>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  int(kWideBf16Smem))) != cudaSuccess)
+                                  int(kChainSmem))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_bf16_kernel<1>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kChainSmem))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_bf16_kernel<2>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kChainSmem))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_dw_bf16_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, int(kDwSmem))) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_f32_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kWideF32Smem))) != cudaSuccess)
     return int(err);
-  return int(cudaFuncSetAttribute(fused_mlp_wide_f32_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  int(kWideF32Smem)));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 3;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(3, 1, 1);
+  cfg.blockDim = dim3(kWsThreads, 1, 1);
+  cfg.dynamicSmemBytes = kDwSmem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaOccupancyMaxActiveClusters(dw_clusters, fused_mlp_wide_dw_bf16_kernel, &cfg)) !=
+      cudaSuccess)
+    return int(err);
+  return *dw_clusters > 0 ? 0 : -3;
 }
 
 // Forward of a wide chain (widths multiples of 16 up to 272, at most 8
-// layers) over m rows, as fused_mlp_fwd. Returns 0, a cudaError_t code, or -1
-// for arguments the kernels do not take.
+// layers) over m rows, as fused_mlp_fwd; bf16 takes `ctas` CTAs (the
+// wrapper's plan: at most one per SM), f32 one CTA per 64 rows. bf16
+// tensors are 16-byte aligned. Returns 0, a cudaError_t code, -1 for
+// arguments the kernels do not take, or -4 when a tensor map is refused.
 extern "C" int fused_mlp_wide_fwd(const void* x, void* y, const void* const* weights,
                                   const int* widths, int n_layers, long long m, int dtype,
-                                  void* stream) {
-  if (m < 0 || (dtype != 0 && dtype != 1) || !wide_widths_ok(widths, n_layers)) return -1;
+                                  int ctas, void* stream) {
+  if (m < 0 || ctas < 1 || (dtype != 0 && dtype != 1) || !wide_widths_ok(widths, n_layers))
+    return -1;
   if (m == 0) return 0;
-  WideChain c = {};
-  c.steps = n_layers;
-  for (int s = 0; s < n_layers; ++s) {
-    c.w[s] = weights[s];
-    c.k[s] = widths[s];
-    c.n[s] = widths[s + 1];
-    if (s + 1 < n_layers) c.relu |= 1u << s;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = n_layers;
+  if (dtype == 0) {
+    WideChain c = {};
+    c.steps = n;
+    for (int i = 0; i < n; ++i) {
+      c.w[i] = weights[i];
+      c.k[i] = widths[i];
+      c.n[i] = widths[i + 1];
+      if (i + 1 < n) c.relu |= 1u << i;
+    }
+    c.dst[n - 1] = y;
+    return launch_chain_f32(x, c, m, s);
   }
-  c.dst[n_layers - 1] = y;
-  return launch_chain(x, c, m, dtype, static_cast<cudaStream_t>(stream));
+  ChainArgs a = {};
+  a.m = m;
+  a.k0 = widths[0];
+  a.steps = n;
+  a.has_out = 1;
+  int err;
+  for (int i = 0; i < n; ++i) {
+    if ((err = map_weight(&a.w[i], weights[i], widths[i], widths[i + 1], false)) != 0) return err;
+    a.st[i] = ChainStep{widths[i], widths[i + 1], i + 1 < n, nullptr, nullptr, nullptr};
+  }
+  if ((err = map_rows(&a.in, x, widths[0], m)) != 0 ||
+      (err = map_rows(&a.out, y, widths[n], m)) != 0)
+    return err;
+  return launch_chain_bf16(a, 0, ctas, s);
 }
 
-// Backward of fused_mlp_wide_fwd for m >= 1 rows. g, dx (may be null: not
-// wanted) and dw as fused_mlp_bwd; weights_t[i] is W_i^T [widths[i+1]][widths[i]].
-// Scratch: post holds m * sum_{i=1}^{n-1} widths[i] elements of the dtype (the
-// recomputed post-activations), gscr as many floats (the masked f32 g of each
-// layer below the top), partial [splits][sum_i widths[i]*widths[i+1]] floats.
+// f32 backward of fused_mlp_wide_fwd for m >= 1 rows. g, dx (may be null:
+// not wanted) and dw as fused_mlp_bwd; weights_t[i] is W_i^T
+// [widths[i+1]][widths[i]]. Scratch: post holds m * sum_{i=1}^{n-1} widths[i]
+// floats (the recomputed post-activations), gscr as many (the masked g of
+// each layer below the top), partial [splits][sum_i widths[i]*widths[i+1]].
 // Returns as fused_mlp_wide_fwd.
-extern "C" int fused_mlp_wide_bwd(const void* x, const void* g, void* dx, void* dw,
-                                  const void* const* weights, const void* const* weights_t,
-                                  const int* widths, int n_layers, long long m, int dtype,
-                                  void* post, float* gscr, float* partial, int splits,
-                                  void* stream) {
-  if (m < 1 || splits < 1 || (dtype != 0 && dtype != 1) || !wide_widths_ok(widths, n_layers))
-    return -1;
+extern "C" int fused_mlp_wide_bwd_f32(const void* x, const void* g, void* dx, void* dw,
+                                      const void* const* weights, const void* const* weights_t,
+                                      const int* widths, int n_layers, long long m, void* post,
+                                      float* gscr, float* partial, int splits, void* stream) {
+  if (m < 1 || splits < 1 || !wide_widths_ok(widths, n_layers)) return -1;
   const int n = n_layers;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t es = dtype == 1 ? sizeof(bf16) : sizeof(float);
   const void* posts[kMaxLayers];  // post_i, post_0 = x
-  float* gs[kMaxLayers];          // g_i below the top, f32
+  float* gs[kMaxLayers];          // g_i below the top
   posts[0] = x;
-  char* pp = static_cast<char*>(post);
+  float* pp = static_cast<float*>(post);
   float* gp = gscr;
   for (int i = 1; i < n; ++i) {
     posts[i] = pp;
-    pp += size_t(m) * widths[i] * es;
+    pp += size_t(m) * widths[i];
     gs[i - 1] = gp;
     gp += size_t(m) * widths[i];
   }
@@ -1535,10 +1916,10 @@ extern "C" int fused_mlp_wide_bwd(const void* x, const void* g, void* dx, void* 
       c.relu |= 1u << l;
       c.dst[l] = const_cast<void*>(posts[l + 1]);
     }
-    if ((err = launch_chain(x, c, m, dtype, s)) != 0) return err;
+    if ((err = launch_chain_f32(x, c, m, s)) != 0) return err;
   }
   const int steps = dx ? n : n - 1;  // the last step makes dx alone
-  if (steps > 0) {  // from the top: g_{i-1} = round(g_i) @ W_i^T masked by post_i > 0
+  if (steps > 0) {  // from the top: g_{i-1} = g_i @ W_i^T masked by post_i > 0
     WideChain c = {};
     c.steps = steps;
     for (int st = 0; st < steps; ++st) {
@@ -1553,11 +1934,10 @@ extern "C" int fused_mlp_wide_bwd(const void* x, const void* g, void* dx, void* 
         c.dst[st] = dx;
       }
     }
-    if ((err = launch_chain(g, c, m, dtype, s)) != 0) return err;
+    if ((err = launch_chain_f32(g, c, m, s)) != 0) return err;
   }
   WideDw d = {};
   d.n_layers = n;
-  d.tile = dtype == 1 ? kDwTile : kDwF32Tile;
   int off = 0, tiles = 0;
   for (int i = 0; i < n; ++i) {
     d.post[i] = posts[i];
@@ -1565,26 +1945,111 @@ extern "C" int fused_mlp_wide_bwd(const void* x, const void* g, void* dx, void* 
     d.dw_off[i] = off;
     off += widths[i] * widths[i + 1];
     d.tile_off[i] = tiles;
-    tiles += ((widths[i] + d.tile - 1) / d.tile) * ((widths[i + 1] + d.tile - 1) / d.tile);
+    tiles += ((widths[i] + kDwF32Tile - 1) / kDwF32Tile) *
+             ((widths[i + 1] + kDwF32Tile - 1) / kDwF32Tile);
   }
   for (int i = 0; i <= n; ++i) d.width[i] = widths[i];
   d.tile_off[n] = tiles;
   d.dw_floats = off;
-  const long long per = (m + splits - 1) / splits;
-  d.rows_per_split = (per + kDwRows - 1) / kDwRows * kDwRows;
-  const dim3 grid(tiles, splits);
-  if (dtype == 1)
-    fused_mlp_wide_dw_bf16_kernel<<<grid, kDwWarps * 32, 0, s>>>(d, m, partial);
-  else
-    fused_mlp_wide_dw_f32_kernel<<<grid, 256, 0, s>>>(d, m, partial);
+  d.rows_per_split = (m + splits - 1) / splits;
+  fused_mlp_wide_dw_f32_kernel<<<dim3(tiles, splits), 256, 0, s>>>(d, m, partial);
   if ((err = int(cudaGetLastError())) != 0) return err;
   const dim3 threads(kReduceCols, kReduceRows);
-  const int blocks = (off + kReduceCols - 1) / kReduceCols;
-  if (dtype == 1)
-    fused_mlp_bwd_reduce_kernel<bf16><<<blocks, threads, 0, s>>>(partial, splits, off,
-                                                                 static_cast<bf16*>(dw));
-  else
-    fused_mlp_bwd_reduce_kernel<float><<<blocks, threads, 0, s>>>(partial, splits, off,
-                                                                  static_cast<float*>(dw));
+  fused_mlp_bwd_reduce_kernel<float><<<(off + kReduceCols - 1) / kReduceCols, threads, 0, s>>>(
+      partial, splits, off, static_cast<float*>(dw));
+  return int(cudaGetLastError());
+}
+
+// bf16 backward of fused_mlp_wide_fwd for m >= 1 rows: the recompute chain,
+// the dgrad chain (each with `ctas` CTAs), the dW kernel over `splits` row
+// splits of `per_split` 64-row blocks, `slices` CTAs of 128 din rows per
+// layer (one cluster that multicasts the g planes with `multicast`), and the
+// sum of the splits. g, dx (may be null: not wanted) and dw as
+// fused_mlp_bwd. planes holds 4 n pointers into the scratch, planes of
+// ceil(m / 128) * 128 rows in blocks of 64: post_0..post_{n-1} (widths[i]
+// wide), g_hi of layers 0..n-1, g_lo of layers 0..n-2 (widths[i+1] wide; the
+// last entry is unused), each [64-row block][8-row group][width/8][8][8], and
+// the bit planes of post_1..post_{n-1} (bit_plane_words; the first entry is
+// unused). partial is [splits][sum_i widths[i]*widths[i+1]] floats. Returns
+// as fused_mlp_wide_fwd.
+extern "C" int fused_mlp_wide_bwd_bf16(const void* x, const void* g, void* dx, void* dw,
+                                       const void* const* weights, const int* widths,
+                                       int n_layers, long long m, void* const* planes,
+                                       float* partial, int splits, long long per_split,
+                                       int slices, int multicast, int ctas, void* stream) {
+  const int n = n_layers;
+  if (m < 1 || splits < 1 || per_split < 1 || ctas < 1 || slices < 1 || slices > 8 ||
+      !wide_widths_ok(widths, n) || (long long)splits * per_split * kBlk < m)
+    return -1;
+  for (int i = 0; i < n; ++i)
+    if ((widths[i] + kDwSlice - 1) / kDwSlice > slices) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* const* post = reinterpret_cast<bf16* const*>(planes);
+  bf16* const* hi = post + n;
+  bf16* const* lo = post + 2 * n;
+  uint32_t* const* bits = reinterpret_cast<uint32_t* const*>(planes + 3 * n);
+  int err;
+  {  // post_0 = x and post_1 .. post_{n-1}: the forward's hidden layers again
+    ChainArgs a = {};
+    a.m = m;
+    a.k0 = widths[0];
+    a.steps = n - 1;
+    a.in_copy = post[0];
+    for (int l = 0; l + 1 < n; ++l) {
+      if ((err = map_weight(&a.w[l], weights[l], widths[l], widths[l + 1], false)) != 0)
+        return err;
+      a.st[l] = ChainStep{widths[l], widths[l + 1], 1, bits[l + 1], post[l + 1], nullptr};
+    }
+    if ((err = map_rows(&a.in, x, widths[0], m)) != 0) return err;
+    if ((err = launch_chain_bf16(a, 2, ctas, s)) != 0) return err;
+  }
+  {  // from the top, g_hi_{n-1} = g and g_{i-1} = g_hi_i @ W_i^T masked by
+     // post_i > 0, split into g_hi_{i-1} and g_lo_{i-1}; then dx
+    ChainArgs a = {};
+    a.m = m;
+    a.k0 = widths[n];
+    a.steps = dx ? n : n - 1;
+    a.in_copy = hi[n - 1];
+    for (int st = 0; st < a.steps; ++st) {
+      const int i = n - 1 - st;
+      if ((err = map_weight(&a.w[st], weights[i], widths[i], widths[i + 1], true)) != 0) return err;
+      a.st[st] = i > 0 ? ChainStep{widths[i + 1], widths[i], 0, bits[i], hi[i - 1], lo[i - 1]}
+                       : ChainStep{widths[1], widths[0], 0, nullptr, nullptr, nullptr};
+    }
+    if ((err = map_rows(&a.in, g, widths[n], m)) != 0) return err;
+    if (dx) {
+      a.has_out = 1;
+      if ((err = map_rows(&a.out, dx, widths[0], m)) != 0) return err;
+    }
+    if ((err = launch_chain_bf16(a, 1, ctas, s)) != 0) return err;
+  }
+  DwArgs d = {};
+  int off = 0;
+  for (int i = 0; i < n; ++i) {
+    d.l[i] = DwLayer{post[i], hi[i], i + 1 < n ? lo[i] : nullptr, widths[i], widths[i + 1], off};
+    off += widths[i] * widths[i + 1];
+  }
+  d.partial = partial;
+  d.blocks = (m + kBlk - 1) / kBlk;
+  d.per_split = per_split;
+  d.dw_floats = off;
+  d.slices = slices;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(slices * n, splits, 1);
+  cfg.blockDim = dim3(kWsThreads, 1, 1);
+  cfg.dynamicSmemBytes = kDwSmem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = multicast && slices > 1 ? 1 : 0;
+  if ((err = int(cudaLaunchKernelEx(&cfg, fused_mlp_wide_dw_bf16_kernel, d))) != 0) return err;
+  if ((err = int(cudaGetLastError())) != 0) return err;
+  const dim3 threads(kReduceCols, kReduceRows);
+  fused_mlp_bwd_reduce_kernel<bf16><<<(off + kReduceCols - 1) / kReduceCols, threads, 0, s>>>(
+      partial, splits, off, static_cast<bf16*>(dw));
   return int(cudaGetLastError());
 }

@@ -2,13 +2,16 @@
 
 Each source is compiled on first use into a shared library with a plain C
 interface (loaded with ctypes by its wrapper module), keyed by a hash of
-the source and the flags, so a changed source or flag builds anew and an
-unchanged one is reused. A failed build raises with nvcc's output.
+the source, the repository headers it includes (``#include "..."``, found
+beside it, followed recursively) and the flags, so a changed source, header
+or flag builds anew and an unchanged one is reused. A failed build raises
+with nvcc's output.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +35,35 @@ def nvcc() -> str:
                        "to build the port's CUDA sources")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(source: Path) -> list:
+    """``source`` and every header it includes with quotes, found relative
+    to the including file, each once, in the order first reached."""
+    seen, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
+def build_key(source: Path, flags: Sequence[str]) -> str:
+    """The hash that names a build: every file of sources(source), each
+    with its name, and the flags."""
+    h = hashlib.sha256()
+    for path in sources(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: Path, extra_flags: Sequence[str] = ()) -> Tuple[Path, float]:
     """Compile ``source`` into csrc/build/ unless a library built from the
     same source and flags is already there. Returns (path, seconds spent
@@ -40,9 +72,7 @@ def build(source: Path, extra_flags: Sequence[str] = ()) -> Tuple[Path, float]:
     renames it into place."""
     source = Path(source)
     flags = (*NVCC_FLAGS, *extra_flags)
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    lib = BUILD_DIR / f"lib{source.stem}_{build_key(source, flags)}.so"
     if lib.exists():
         return lib, 0.0
     compiler = nvcc()

@@ -21,8 +21,10 @@ results. Chains up to 64 wide (both NGP MLPs) take the narrow kernels
 (weights staged once per CTA); chains with a width above 64, up to 272
 (OriginNeRF's 64 -> 257 x 8 backbone with its biases folded in), take the
 wide kernels (``fused_mlp_wide``, ``fused_mlp_wide_backward``: weights
-streamed through shared memory, a backward through global scratch). At most
-8 layers, in bf16 (tensor cores) or f32 (CUDA cores); anything wider raises.
+streamed through shared memory, a backward through global scratch; in bf16
+on wgmma and TMA, with the launch shape and scratch of ``wide_plan``). At
+most 8 layers, in bf16 (tensor cores) or f32 (CUDA cores); anything wider
+raises.
 The plain versions take any widths; ``fused_mlp_plain`` runs them on any
 device (the kernels' yardstick in a model's gradient). ``mlp_work`` gives a
 call's flops, bytes and its H100 bound from the shapes; ``exact_inputs``
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -45,8 +48,22 @@ MAX_LAYERS = 8
 MAX_WIDTH = 64         # the narrow kernels
 WIDE_MAX_WIDTH = 272   # the wide kernels
 WIDTH_STEP = 16        # the kernels' width granularity; the wrapper pads to it
-WIDE_SPLIT_ROWS = 4096  # rows of one split of the wide backward's dW product
+WIDE_SPLIT_ROWS = 4096  # f32: rows of one split of the wide backward's dW product
 WIDE_MAX_SPLITS = 32
+# The bf16 wide kernels (csrc/fused_mlp.cu): a CTA takes 128-row tiles (two
+# warpgroups of one 64-row block each); the dW kernel's CTA takes 128 din
+# rows; their dynamic shared memory, which fused_mlp_wide_init reports too.
+WIDE_TILE_ROWS = 128
+WIDE_BLOCK_ROWS = 64
+WIDE_DW_SLICE = 128
+WIDE_THREADS_PER_GROUP = 128  # a warpgroup
+WIDE_BIT_WORDS = 5  # words of ReLU-mask bits a thread keeps per 64-row block (272 / 8 x 4 bits)
+WIDE_CHAIN_SMEM = 1024 + 2 * 34816 + 3 * 40960 + (2 * 3 + 2) * 8
+WIDE_DW_SMEM = 1024 + 4 * (8192 + 2 * 17408) + 2 * 4 * 8
+WIDE_F32_SMEM = 2 * WIDE_MAX_WIDTH * 68 * 4  # the f32 chain kernel's two k-major 64-row tiles
+SMEM_PER_BLOCK = 232448  # the H100's opt-in limit of dynamic shared memory
+WIDE_DW_MULTICAST = False  # the dW slices of a layer share the g planes by TMA multicast
+WIDE_DW_WAVES = 4  # waves of dW CTAs: more, shorter CTAs balance the slices' unequal work
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,6 +130,99 @@ def mlp_work(widths: Sequence[int], rows: int, dtype: torch.dtype,
     return roofline(flops, nbytes, dtype)
 
 
+@dataclass(frozen=True)
+class WidePlan:
+    """The launch shape and scratch of the wide kernels for one call
+    (wide_plan). Scratch sizes count elements of the dtype (bf16: the
+    blocked planes; f32: post and g) and floats of the partial dW."""
+    widths: Tuple[int, ...]
+    rows: int
+    dtype: torch.dtype
+    chain_ctas: int          # CTAs of a chain kernel (bf16: a persistent grid)
+    chain_smem: int          # its dynamic shared memory (bytes)
+    dw_slices: int           # dW CTAs of one layer along din (bf16: 128 din rows each)
+    dw_multicast: bool       # the slices run as one cluster that shares the g planes
+    dw_splits: int           # row splits of the dW product
+    dw_split_rows: int       # rows of one split (a multiple of 64 in bf16)
+    dw_smem: int
+    planes: Tuple[Tuple[str, int, int], ...]  # bf16: (name, offset, width) of each plane
+    plane_rows: int          # rows of each plane (bf16: whole 128-row tiles)
+    scratch_elems: int
+    partial_floats: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        return self.scratch_elems * torch.empty((), dtype=self.dtype).element_size()
+
+
+def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
+              sms: int = 132, clusters: Optional[int] = None) -> WidePlan:
+    """The wide kernels' launch shape for a chain of ``widths`` (multiples
+    of 16 up to 272) over ``rows`` rows on a card with ``sms`` SMs.
+
+    bf16: the chain kernels run min(sms, tiles) CTAs over 128-row tiles.
+    The backward's scratch is a blocked plane ([64-row block][8-row group]
+    [width/8][8][8], rows padded to whole tiles) per post_i (post_0 = x), per
+    g_hi_i and per g_lo_i below the top; the dW kernel's CTAs each take 128
+    din rows (a slice) of one layer, and the rows are split into
+    WIDE_DW_WAVES waves of ``sms`` CTAs. With ``clusters`` (the device's
+    resident clusters of 3 dW CTAs) and WIDE_DW_MULTICAST, a layer's slices
+    run as one cluster that multicasts the g planes, in one wave of
+    clusters.
+    f32: one CTA per 64 rows, post and g of the hidden layers in f32, row
+    splits of WIDE_SPLIT_ROWS."""
+    widths = tuple(int(w) for w in widths)
+    n = len(widths) - 1
+    dw_floats = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    if dtype == torch.float32:
+        splits = max(1, min(WIDE_MAX_SPLITS, -(-rows // WIDE_SPLIT_ROWS)))
+        hidden = rows * sum(widths[1:-1])
+        return WidePlan(widths, rows, dtype, max(1, -(-rows // 64)), WIDE_F32_SMEM,
+                        0, False, splits, -(-rows // splits) if rows else 0, 0, (), rows,
+                        2 * hidden, splits * dw_floats)
+    tiles = -(-rows // WIDE_TILE_ROWS)
+    plane_rows = tiles * WIDE_TILE_ROWS
+    slices = max(-(-d // WIDE_DW_SLICE) for d in widths[:-1])
+    multicast = bool(WIDE_DW_MULTICAST and clusters and slices > 1)
+    blocks = -(-rows // WIDE_BLOCK_ROWS)
+    waves = clusters // n if multicast else WIDE_DW_WAVES * sms // (slices * n)
+    splits = max(1, min(blocks, waves))
+    per = -(-blocks // splits) if blocks else 1
+    splits = max(1, -(-blocks // per))
+    planes, off = [], 0
+    for name, ws in (("post", widths[:-1]), ("hi", widths[1:]), ("lo", widths[1:-1])):
+        for i, w in enumerate(ws):
+            planes.append((f"{name}{i}", off, w))
+            off += plane_rows * w
+    for i in range(1, n):  # the ReLU masks of post_1.., as bits (2 bf16 elements a word)
+        planes.append((f"bits{i}", off, WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2 // WIDE_BLOCK_ROWS))
+        off += plane_rows * WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2 // WIDE_BLOCK_ROWS
+    return WidePlan(widths, rows, dtype, max(1, min(sms, tiles)), WIDE_CHAIN_SMEM, slices,
+                    multicast, splits, per * WIDE_BLOCK_ROWS, WIDE_DW_SMEM, tuple(planes),
+                    plane_rows, off, splits * dw_floats)
+
+
+def wide_planes(plan: WidePlan, scratch: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """The bf16 scratch's planes as views of ``scratch`` (plan.scratch_elems
+    elements), in the order fused_mlp_wide_bwd_bf16 takes them: post_0..,
+    g_hi_0.., g_lo_0.. (None for the top layer's), bits_0.. (None for x's)."""
+    views = {name: scratch[off:off + plan.plane_rows * w]
+             for name, off, w in plan.planes}
+    n = len(plan.widths) - 1
+    return [views.get(f"{name}{i}") for name in ("post", "hi", "lo", "bits") for i in range(n)]
+
+
+def split_bf16(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(g_hi, g_lo) in bf16 of an f32 gradient, as the wide dgrad writes
+    them: g_hi = bf16(g), g_lo = bf16(g - g_hi); where the head is not
+    finite (NaN, inf, or an f32 value beyond bf16's range) it carries the
+    value alone and g_lo is 0."""
+    hi = g.to(torch.bfloat16)
+    hf = hi.float()
+    lo = torch.where(hf.abs() <= 3.0e38, g - hf, torch.zeros_like(g))
+    return hi, lo.to(torch.bfloat16)
+
+
 def build() -> Tuple[Path, float]:
     """Compile csrc/fused_mlp.cu (see _build.build). Returns (path,
     seconds spent compiling; 0.0 when it was already built)."""
@@ -129,26 +239,40 @@ def _library() -> ctypes.CDLL:
     lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
     lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
                                   i32, i64, i32, ptr]
-    lib.fused_mlp_wide_init.argtypes = []
-    lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, ptr]
-    lib.fused_mlp_wide_bwd.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptrs, ints, i32,
-                                       i64, i32, ptr, ptr, ptr, i32, ptr]
+    lib.fused_mlp_wide_init.argtypes = [ints, ints, ints]
+    lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
+    lib.fused_mlp_wide_bwd_f32.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptrs, ints, i32,
+                                           i64, ptr, ptr, ptr, i32, ptr]
+    lib.fused_mlp_wide_bwd_bf16.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64,
+                                            ptrs, ptr, i32, i64, i32, i32, i32, ptr]
     for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd,
-               lib.fused_mlp_wide_init, lib.fused_mlp_wide_fwd, lib.fused_mlp_wide_bwd):
+               lib.fused_mlp_wide_init, lib.fused_mlp_wide_fwd, lib.fused_mlp_wide_bwd_f32,
+               lib.fused_mlp_wide_bwd_bf16):
         fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _wide_library(device: int) -> ctypes.CDLL:
-    """The library, with the wide kernels' shared-memory limit lifted on
+def _wide_library(device: int) -> Tuple[ctypes.CDLL, int]:
+    """(the library, the dW kernel's resident clusters of 3), with the wide
+    kernels' shared-memory limit lifted and their clusters checked on
     ``device`` (once per device)."""
     lib = _library()
+    chain, dw, clusters = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.fused_mlp_wide_init()
+        err = lib.fused_mlp_wide_init(ctypes.byref(chain), ctypes.byref(dw),
+                                      ctypes.byref(clusters))
     if err != 0:
         raise RuntimeError(f"fused_mlp wide kernels: init failed (error {err})")
-    return lib
+    if (chain.value, dw.value) != (WIDE_CHAIN_SMEM, WIDE_DW_SMEM):
+        raise RuntimeError(f"fused_mlp wide kernels take {chain.value}, {dw.value} bytes of "
+                           f"shared memory; the plan has {WIDE_CHAIN_SMEM}, {WIDE_DW_SMEM}")
+    return lib, clusters.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -347,12 +471,14 @@ def fused_mlp_wide(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib = _wide_library(x.device.index)
+    lib, clusters = _wide_library(x.device.index)
+    plan = wide_plan(widths, x.shape[0], x.dtype, _sms(x.device.index), clusters)
     w_ptrs, c_widths = _c_args(weights, widths)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.fused_mlp_wide_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
-                                     len(weights), x.shape[0], _DTYPE_CODE[x.dtype], stream)
+                                     len(weights), x.shape[0], _DTYPE_CODE[x.dtype],
+                                     plan.chain_ctas, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp wide kernel launch failed (error {err}) "
                            f"for widths {widths}")
@@ -364,14 +490,13 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                             g: torch.Tensor, need_dx: bool = True
                             ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     """The wide backward kernels on CUDA tensors as fused_mlp_wide takes
-    them, g [M, D_out] in x's dtype. Scratch for the recomputed
-    post-activations, each layer's f32 gradient and the row splits' partial
-    dW is allocated here and released with the call."""
+    them, g [M, D_out] in x's dtype. Scratch (wide_plan: the recomputed
+    post-activations, each layer's gradient and the row splits' partial dW)
+    is allocated here and released with the call."""
     widths = [x.shape[1]] + [w.shape[1] for w in weights]
     m, dtype = x.shape[0], x.dtype
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
-    weights_t = [w.t().contiguous() for w in weights]
     g = _aligned(g)
     sizes = [a * b for a, b in zip(widths[:-1], widths[1:])]
     dw = torch.empty(sum(sizes), dtype=dtype, device=x.device)
@@ -379,21 +504,32 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if m == 0:
         dw.zero_()
     else:
-        lib = _wide_library(x.device.index)
-        hidden = m * sum(widths[1:-1])
-        post = torch.empty(hidden, dtype=dtype, device=x.device)
-        gscr = torch.empty(hidden, dtype=torch.float32, device=x.device)
-        splits = min(WIDE_MAX_SPLITS, -(-m // WIDE_SPLIT_ROWS))
-        partial = torch.empty((splits, sum(sizes)), dtype=torch.float32, device=x.device)
+        lib, clusters = _wide_library(x.device.index)
+        plan = wide_plan(widths, m, dtype, _sms(x.device.index), clusters)
+        scratch = torch.empty(plan.scratch_elems, dtype=dtype, device=x.device)
+        partial = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
         w_ptrs, c_widths = _c_args(weights, widths)
-        wt_ptrs, _ = _c_args(weights_t, widths)
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        dx_ptr = dx.data_ptr() if need_dx else None
         with torch.cuda.device(x.device):
-            err = lib.fused_mlp_wide_bwd(
-                x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
-                dw.data_ptr(), w_ptrs, wt_ptrs, c_widths, len(weights), m,
-                _DTYPE_CODE[dtype], post.data_ptr() or None, gscr.data_ptr() or None,
-                partial.data_ptr(), splits, stream)
+            if dtype == torch.bfloat16:
+                planes = [p.data_ptr() if p is not None else None
+                          for p in wide_planes(plan, scratch)]
+                err = lib.fused_mlp_wide_bwd_bf16(
+                    x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
+                    len(weights), m, (ctypes.c_void_p * len(planes))(*planes),
+                    partial.data_ptr(), plan.dw_splits,
+                    plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
+                    int(plan.dw_multicast), plan.chain_ctas, stream)
+            else:
+                weights_t = [w.t().contiguous() for w in weights]
+                wt_ptrs, _ = _c_args(weights_t, widths)
+                hidden = m * sum(widths[1:-1])
+                err = lib.fused_mlp_wide_bwd_f32(
+                    x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, wt_ptrs,
+                    c_widths, len(weights), m, scratch.data_ptr() or None,
+                    (scratch.data_ptr() + 4 * hidden) or None, partial.data_ptr(),
+                    plan.dw_splits, stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp wide backward launch failed (error {err}) "
                                f"for widths {widths}")

@@ -102,7 +102,10 @@ def test_fused_mlp_pads_to_the_kernels_widths(cuda_device, widths, dtype, rtol):
 
 
 WIDE = [(64,) + (257,) * 8, (48, 96, 80, 16), (16, 272, 272, 3), (272, 272)]
-WIDE_ROWS = [1, 127, 128, 129, 1000, 131072]
+# rows: one 64-row block of a consumer warpgroup on both sides, a 128-row
+# tile on both sides, and one row past a whole wave of the persistent grid
+# (132 SMs x 128 rows)
+WIDE_ROWS = [1, 63, 64, 65, 127, 128, 129, 1000, 132 * 128 + 1, 131072]
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
@@ -168,6 +171,53 @@ def test_fused_mlp_wide_backward_is_deterministic_and_skips_dx(cuda_device):
     none, dws3 = fm.fused_mlp_backward(x, ws, g, need_dx=False)
     assert none is None and torch.equal(dx, dx2)
     assert all(map(torch.equal, dws, dws2)) and all(map(torch.equal, dws, dws3))
+
+
+@pytest.mark.parametrize("rows", [20000, 132 * 128 + 1])
+def test_fused_mlp_wide_backward_cluster_path_is_deterministic(cuda_device, rows, monkeypatch):
+    """With the dW slices of a layer in one cluster that multicasts the g
+    planes (WIDE_DW_MULTICAST), the bf16 backward gives the plain versions'
+    bits on exact inputs and the same bits twice on random ones."""
+    monkeypatch.setattr(fm, "WIDE_DW_MULTICAST", True)
+    widths = (64,) + (257,) * 8
+    _, clusters = fm._wide_library(cuda_device.index or 0)
+    plan = fm.wide_plan(fm.padded_widths(widths), rows, torch.bfloat16,
+                        fm._sms(cuda_device.index or 0), clusters)
+    assert plan.dw_multicast and plan.dw_slices == 3
+    xe, wse, ge = fm.exact_inputs(widths, rows, torch.bfloat16, cuda_device)
+    dx, dws = fm.fused_mlp_backward(xe, wse, ge)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(xe, wse, ge)
+    assert torch.equal(dx, dx_ref) and all(map(torch.equal, dws, dws_ref))
+    x, ws = _net(widths, rows, torch.bfloat16, cuda_device)
+    g = _grad_out(rows, 257, torch.bfloat16, cuda_device)
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx2, dws2 = fm.fused_mlp_backward(x, ws, g)
+    assert torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", WIDE)
+def test_fused_mlp_wide_keeps_nan(cuda_device, widths, dtype):
+    """test_fused_mlp_keeps_nan on the wide kernels: a NaN in x comes out
+    NaN in the same rows of y and nowhere else; a NaN in g comes out NaN in
+    the same rows of dx; dx and every dW have the plain version's NaN
+    pattern."""
+    rows = 1000
+    x, ws = _net(widths, rows, dtype, cuda_device)
+    bad = torch.tensor([0, 17, 500, 999], device=cuda_device)
+    x[bad, 3] = float("nan")
+    with torch.no_grad():
+        y = fm.fused_mlp(x, ws)
+    assert torch.isnan(y[bad]).all()
+    assert torch.equal(torch.isnan(y).any(1).nonzero().flatten(), bad)
+    g = _grad_out(rows, widths[-1], dtype, cuda_device)
+    g_bad = torch.tensor([3, 400], device=cuda_device)
+    g[g_bad, 0] = float("nan")
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    assert torch.isnan(dx[g_bad]).all()
+    for a, b in zip([dx] + dws, [dx_ref] + dws_ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
 
 
 @pytest.mark.parametrize("use_bf16", [False, True])
