@@ -904,11 +904,9 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 //     split; a producer warp keeps four 32-row slots in flight, each four
 //     contiguous bulk copies of the CTA's post slice and one of each g
 //     plane. Each split writes its partial dW; the fixed-order sum follows.
-//     The slices of a layer can run as one cluster whose first CTA
-//     multicasts the g planes to the others (WIDE_DW_MULTICAST in the
-//     wrapper): each g byte is then read from L2 once per split, not once per
-//     slice, but the clusters' lock step ran slower on an H100 than
-//     independent CTAs in several waves, which the wrapper launches.
+//     The slices of a layer each read the g planes from L2 (no cluster
+//     multicast: a cluster of the slices sharing them ran slower on an H100
+//     than independent CTAs in several waves).
 //
 // f32 design (CUDA cores): 64-row tiles of k-major activations, 4x4
 // register micro-tiles, weights read through the cache and W^T from the
@@ -1111,6 +1109,9 @@ constexpr int kRegsProducer = 56, kRegsConsumer = 224;
 constexpr size_t kChainSmem = 1024 + 2 * size_t(kActBytes) + kStages * size_t(kSlotBytes) +
                               (2 * kStages + 2) * 8;
 constexpr size_t kDwSmem = 1024 + kDwStages * size_t(kDwSlotBytes) + 2 * kDwStages * 8;
+constexpr size_t kSmemOptin = 232448;  // the H100's opt-in dynamic shared memory per block
+static_assert(kChainSmem <= kSmemOptin && kDwSmem <= kSmemOptin && kWideF32Smem <= kSmemOptin,
+              "a wide kernel's CTA fits an SM");
 
 // The accumulators of a warpgroup's 64 rows x up to 272 columns: wgmma
 // m64n256 into a (m64n64 into its first 32 for N <= 64) and m64n16 into b
@@ -1426,17 +1427,13 @@ __device__ __forceinline__ void dw_mma(Acc& acc, uint32_t s0, int c, int gout, b
 }
 
 // dW_i rows [128 slice, 128 slice + 128) x all columns of one layer, over
-// the row split blockIdx.y, 32 rows per ring slot. Launched in clusters of
-// the layer's slices, the first CTA multicasts the g pieces to the others and
-// every consumer warp frees a slot on its own CTA's empty barrier and on the
-// first CTA's; without a cluster each CTA loads its own.
+// the row split blockIdx.y, 32 rows per ring slot.
 __global__ void __launch_bounds__(kWsThreads, 1)
 fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + kDwStages * kDwSlotBytes;  // full[kDwStages], empty[kDwStages]
-  const bool shared = hp::cluster_size() > 1;
-  const int rank = int(blockIdx.x) % a.slices;               // the slice (and cluster rank)
+  const int rank = int(blockIdx.x) % a.slices;               // the slice
   const DwLayer& L = a.l[blockIdx.x / a.slices];
   const int n_active = (L.din + kDwSlice - 1) / kDwSlice;  // slices with rows
   const bool active = rank < n_active;
@@ -1447,12 +1444,11 @@ fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDwStages; ++s) {
       hp::mbar_init(bars + 8u * s, 1);
-      hp::mbar_init(bars + 8u * (kDwStages + s),
-                    (shared && rank == 0 ? n_active : 1) * warps_per_cta);
+      hp::mbar_init(bars + 8u * (kDwStages + s), warps_per_cta);
     }
     hp::mbar_init_fence();
   }
-  hp::cluster_sync();  // every barrier of the cluster is ready
+  __syncthreads();
   const int wg = threadIdx.x / kWgThreads;
   if (wg == 0) {
     hp::regs_dec<kRegsProducer>();
@@ -1460,11 +1456,10 @@ fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
       const int gin = L.din / 8, gout = L.dout / 8, planes = L.lo ? 2 : 1;
       const int np = min(kDwSlice / 8, gin - kDwSlice / 8 * rank);  // the CTA's din groups
       const uint32_t g_bytes = kDwQ * gout * kCell;
-      const uint16_t ctas = uint16_t((1u << n_active) - 1);
       int slot = 0;
       uint32_t phase = 0;
       for (long long h = h0; h < h1; ++h) {
-        hp::mbar_wait_cluster(bars + 8u * (kDwStages + slot), phase ^ 1);
+        hp::mbar_wait(bars + 8u * (kDwStages + slot), phase ^ 1);
         const uint32_t dst = base + slot * kDwSlotBytes, full = bars + 8u * slot;
         const long long blk = h / kParts;
         const int q0 = kDwQ * int(h % kParts);
@@ -1473,23 +1468,16 @@ fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
           hp::bulk_load(dst + q * (kDwSlice / 8) * kCell,
                         L.post + blk * kBlk * L.din + cell_off(L.din, q0 + q, kDwSlice / 8 * rank),
                         np * kCell, full);
-        if (!shared || rank == 0)
-          for (int p = 0; p < planes; ++p) {
-            const bf16* src = (p ? L.lo : L.hi) + blk * kBlk * L.dout + cell_off(L.dout, q0, 0);
-            const uint32_t to = dst + kDwPostBytes + p * kDwPlaneBytes;
-            if (shared && n_active > 1)
-              hp::bulk_load_multicast(to, src, g_bytes, full, ctas);
-            else
-              hp::bulk_load(to, src, g_bytes, full);
-          }
+        for (int p = 0; p < planes; ++p)
+          hp::bulk_load(dst + kDwPostBytes + p * kDwPlaneBytes,
+                        (p ? L.lo : L.hi) + blk * kBlk * L.dout + cell_off(L.dout, q0, 0),
+                        g_bytes, full);
         if (++slot == kDwStages) {
           slot = 0;
           phase ^= 1;
         }
       }
     }
-    __syncwarp();
-    hp::cluster_sync();  // no CTA leaves while another may still signal it
   } else {
     hp::regs_inc<kRegsConsumer>();
     const int c = wg - 1, tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
@@ -1503,9 +1491,7 @@ fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc.b[i] = 0.f;
     auto release = [&](int s) {
-      if (!signal) return;
-      hp::mbar_arrive(bars + 8u * (kDwStages + s));
-      if (shared && rank != 0) hp::mbar_arrive_cluster(bars + 8u * (kDwStages + s), 0);
+      if (signal) hp::mbar_arrive(bars + 8u * (kDwStages + s));
     };
     if (active) {
       int slot = 0, prev = -1;
@@ -1547,7 +1533,6 @@ fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
             *reinterpret_cast<float2*>(out + d * L.dout + col) = acc_pair(acc, gi, e);
         }
     }
-    hp::cluster_sync();
   }
 }
 
@@ -1790,16 +1775,11 @@ extern "C" int fused_mlp_bwd(const void* x, const void* g, void* dx, void* dw, f
 
 
 // Lifts the dynamic shared-memory limit of the wide kernels on the current
-// device and checks that a 3-CTA cluster of the dW kernel fits; call once per
-// device before fused_mlp_wide_fwd / _bwd_*. Writes the bf16 kernels'
-// dynamic shared memory (chain, dW) to *chain_smem, *dw_smem. Returns 0, a
-// cudaError_t code, -2 when the device has too little shared memory, or -3
-// when the dW kernel's clusters cannot be scheduled.
-extern "C" int fused_mlp_wide_init(int* chain_smem, int* dw_smem, int* dw_clusters) {
+// device; call once per device before fused_mlp_wide_fwd / _bwd_*. Returns
+// 0, a cudaError_t code, or -2 when the device has too little shared memory.
+extern "C" int fused_mlp_wide_init() {
   int dev = 0, max_smem = 0;
   cudaError_t err;
-  *chain_smem = int(kChainSmem);
-  *dw_smem = int(kDwSmem);
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
   if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
@@ -1823,21 +1803,7 @@ extern "C" int fused_mlp_wide_init(int* chain_smem, int* dw_smem, int* dw_cluste
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   int(kWideF32Smem))) != cudaSuccess)
     return int(err);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 3;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(3, 1, 1);
-  cfg.blockDim = dim3(kWsThreads, 1, 1);
-  cfg.dynamicSmemBytes = kDwSmem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if ((err = cudaOccupancyMaxActiveClusters(dw_clusters, fused_mlp_wide_dw_bf16_kernel, &cfg)) !=
-      cudaSuccess)
-    return int(err);
-  return *dw_clusters > 0 ? 0 : -3;
+  return 0;
 }
 
 // Forward of a wide chain (widths multiples of 16 up to 272, at most 8
@@ -1963,8 +1929,7 @@ extern "C" int fused_mlp_wide_bwd_f32(const void* x, const void* g, void* dx, vo
 // bf16 backward of fused_mlp_wide_fwd for m >= 1 rows: the recompute chain,
 // the dgrad chain (each with `ctas` CTAs), the dW kernel over `splits` row
 // splits of `per_split` 64-row blocks, `slices` CTAs of 128 din rows per
-// layer (one cluster that multicasts the g planes with `multicast`), and the
-// sum of the splits. g, dx (may be null: not wanted) and dw as
+// layer, and the sum of the splits. g, dx (may be null: not wanted) and dw as
 // fused_mlp_bwd. planes holds 4 n pointers into the scratch, planes of
 // ceil(m / 128) * 128 rows in blocks of 64: post_0..post_{n-1} (widths[i]
 // wide), g_hi of layers 0..n-1, g_lo of layers 0..n-2 (widths[i+1] wide; the
@@ -1976,9 +1941,9 @@ extern "C" int fused_mlp_wide_bwd_bf16(const void* x, const void* g, void* dx, v
                                        const void* const* weights, const int* widths,
                                        int n_layers, long long m, void* const* planes,
                                        float* partial, int splits, long long per_split,
-                                       int slices, int multicast, int ctas, void* stream) {
+                                       int slices, int ctas, void* stream) {
   const int n = n_layers;
-  if (m < 1 || splits < 1 || per_split < 1 || ctas < 1 || slices < 1 || slices > 8 ||
+  if (m < 1 || splits < 1 || per_split < 1 || ctas < 1 || slices < 1 ||
       !wide_widths_ok(widths, n) || (long long)splits * per_split * kBlk < m)
     return -1;
   for (int i = 0; i < n; ++i)
@@ -2034,19 +1999,7 @@ extern "C" int fused_mlp_wide_bwd_bf16(const void* x, const void* g, void* dx, v
   d.per_split = per_split;
   d.dw_floats = off;
   d.slices = slices;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = slices;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(slices * n, splits, 1);
-  cfg.blockDim = dim3(kWsThreads, 1, 1);
-  cfg.dynamicSmemBytes = kDwSmem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = multicast && slices > 1 ? 1 : 0;
-  if ((err = int(cudaLaunchKernelEx(&cfg, fused_mlp_wide_dw_bf16_kernel, d))) != 0) return err;
+  fused_mlp_wide_dw_bf16_kernel<<<dim3(slices * n, splits), kWsThreads, kDwSmem, s>>>(d);
   if ((err = int(cudaGetLastError())) != 0) return err;
   const dim3 threads(kReduceCols, kReduceRows);
   fused_mlp_bwd_reduce_kernel<bf16><<<(off + kReduceCols - 1) / kReduceCols, threads, 0, s>>>(

@@ -1,10 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels, as
 // thin PTX wrappers: mbarriers, the tensor memory accelerator (TMA: tiled
-// tensor copies and plain bulk copies, with cluster multicast), proxy
-// fences, named and cluster barriers, register reallocation (setmaxnreg)
-// and the warpgroup matrix multiply (wgmma) with its shared-memory
-// descriptors. Shared-memory addresses are 32-bit shared-window addresses
-// (smem_u32).
+// tensor copies and plain bulk copies), proxy fences, named barriers,
+// register reallocation (setmaxnreg) and the warpgroup matrix multiply
+// (wgmma) with its shared-memory descriptors. Shared-memory addresses are
+// 32-bit shared-window addresses (smem_u32).
 #pragma once
 
 #include <cuda.h>
@@ -24,21 +23,13 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// makes the barriers' initialisation visible to the async proxy and the cluster
+// makes the barriers' initialisation visible to the async proxy
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// arrive on the barrier at the same offset in CTA `cta` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(cta));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
 }
 
 // arrive and add `bytes` to the transaction count the phase waits for
@@ -54,19 +45,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// the same, acquiring what other CTAs of the cluster released on arrival
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(bar), "r"(parity)
@@ -115,17 +93,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
           dst),
       "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// the same into the shared memory of every CTA of the cluster in `ctas`
-// (a bit mask of ranks), each completing on its barrier at bar's offset
-__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, uint32_t bytes,
-                                                    uint32_t bar, uint16_t ctas) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(ctas)
       : "memory");
 }
 
@@ -183,22 +150,10 @@ __device__ __forceinline__ void st_shared_if(uint32_t addr, uint32_t v, bool pre
 }
 
 // ---------------------------------------------------------------------------
-// barriers, cluster, registers
+// barriers, registers
 
 __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// CTAs of the cluster (1 without one)
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
 }
 
 template <int N>

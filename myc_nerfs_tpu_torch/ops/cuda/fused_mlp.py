@@ -50,19 +50,14 @@ WIDE_MAX_WIDTH = 272   # the wide kernels
 WIDTH_STEP = 16        # the kernels' width granularity; the wrapper pads to it
 WIDE_SPLIT_ROWS = 4096  # f32: rows of one split of the wide backward's dW product
 WIDE_MAX_SPLITS = 32
-# The bf16 wide kernels (csrc/fused_mlp.cu): a CTA takes 128-row tiles (two
-# warpgroups of one 64-row block each); the dW kernel's CTA takes 128 din
-# rows; their dynamic shared memory, which fused_mlp_wide_init reports too.
+# The bf16 wide kernels (csrc/fused_mlp.cu, which alone lays out their
+# shared memory): a CTA takes 128-row tiles (two warpgroups of one 64-row
+# block each); the dW kernel's CTA takes 128 din rows.
 WIDE_TILE_ROWS = 128
 WIDE_BLOCK_ROWS = 64
 WIDE_DW_SLICE = 128
 WIDE_THREADS_PER_GROUP = 128  # a warpgroup
 WIDE_BIT_WORDS = 5  # words of ReLU-mask bits a thread keeps per 64-row block (272 / 8 x 4 bits)
-WIDE_CHAIN_SMEM = 1024 + 2 * 34816 + 3 * 40960 + (2 * 3 + 2) * 8
-WIDE_DW_SMEM = 1024 + 4 * (8192 + 2 * 17408) + 2 * 4 * 8
-WIDE_F32_SMEM = 2 * WIDE_MAX_WIDTH * 68 * 4  # the f32 chain kernel's two k-major 64-row tiles
-SMEM_PER_BLOCK = 232448  # the H100's opt-in limit of dynamic shared memory
-WIDE_DW_MULTICAST = False  # the dW slices of a layer share the g planes by TMA multicast
 WIDE_DW_WAVES = 4  # waves of dW CTAs: more, shorter CTAs balance the slices' unequal work
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -139,12 +134,9 @@ class WidePlan:
     rows: int
     dtype: torch.dtype
     chain_ctas: int          # CTAs of a chain kernel (bf16: a persistent grid)
-    chain_smem: int          # its dynamic shared memory (bytes)
     dw_slices: int           # dW CTAs of one layer along din (bf16: 128 din rows each)
-    dw_multicast: bool       # the slices run as one cluster that shares the g planes
     dw_splits: int           # row splits of the dW product
     dw_split_rows: int       # rows of one split (a multiple of 64 in bf16)
-    dw_smem: int
     planes: Tuple[Tuple[str, int, int], ...]  # bf16: (name, offset, width) of each plane
     plane_rows: int          # rows of each plane (bf16: whole 128-row tiles)
     scratch_elems: int
@@ -156,7 +148,7 @@ class WidePlan:
 
 
 def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
-              sms: int = 132, clusters: Optional[int] = None) -> WidePlan:
+              sms: int = 132) -> WidePlan:
     """The wide kernels' launch shape for a chain of ``widths`` (multiples
     of 16 up to 272) over ``rows`` rows on a card with ``sms`` SMs.
 
@@ -165,10 +157,7 @@ def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
     [width/8][8][8], rows padded to whole tiles) per post_i (post_0 = x), per
     g_hi_i and per g_lo_i below the top; the dW kernel's CTAs each take 128
     din rows (a slice) of one layer, and the rows are split into
-    WIDE_DW_WAVES waves of ``sms`` CTAs. With ``clusters`` (the device's
-    resident clusters of 3 dW CTAs) and WIDE_DW_MULTICAST, a layer's slices
-    run as one cluster that multicasts the g planes, in one wave of
-    clusters.
+    WIDE_DW_WAVES waves of ``sms`` CTAs.
     f32: one CTA per 64 rows, post and g of the hidden layers in f32, row
     splits of WIDE_SPLIT_ROWS."""
     widths = tuple(int(w) for w in widths)
@@ -177,16 +166,14 @@ def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
     if dtype == torch.float32:
         splits = max(1, min(WIDE_MAX_SPLITS, -(-rows // WIDE_SPLIT_ROWS)))
         hidden = rows * sum(widths[1:-1])
-        return WidePlan(widths, rows, dtype, max(1, -(-rows // 64)), WIDE_F32_SMEM,
-                        0, False, splits, -(-rows // splits) if rows else 0, 0, (), rows,
-                        2 * hidden, splits * dw_floats)
+        return WidePlan(widths, rows, dtype, max(1, -(-rows // 64)), 0, splits,
+                        -(-rows // splits) if rows else 0, (), rows, 2 * hidden,
+                        splits * dw_floats)
     tiles = -(-rows // WIDE_TILE_ROWS)
     plane_rows = tiles * WIDE_TILE_ROWS
     slices = max(-(-d // WIDE_DW_SLICE) for d in widths[:-1])
-    multicast = bool(WIDE_DW_MULTICAST and clusters and slices > 1)
     blocks = -(-rows // WIDE_BLOCK_ROWS)
-    waves = clusters // n if multicast else WIDE_DW_WAVES * sms // (slices * n)
-    splits = max(1, min(blocks, waves))
+    splits = max(1, min(blocks, WIDE_DW_WAVES * sms // (slices * n)))
     per = -(-blocks // splits) if blocks else 1
     splits = max(1, -(-blocks // per))
     planes, off = [], 0
@@ -197,9 +184,8 @@ def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
     for i in range(1, n):  # the ReLU masks of post_1.., as bits (2 bf16 elements a word)
         planes.append((f"bits{i}", off, WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2 // WIDE_BLOCK_ROWS))
         off += plane_rows * WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2 // WIDE_BLOCK_ROWS
-    return WidePlan(widths, rows, dtype, max(1, min(sms, tiles)), WIDE_CHAIN_SMEM, slices,
-                    multicast, splits, per * WIDE_BLOCK_ROWS, WIDE_DW_SMEM, tuple(planes),
-                    plane_rows, off, splits * dw_floats)
+    return WidePlan(widths, rows, dtype, max(1, min(sms, tiles)), slices, splits,
+                    per * WIDE_BLOCK_ROWS, tuple(planes), plane_rows, off, splits * dw_floats)
 
 
 def wide_planes(plan: WidePlan, scratch: torch.Tensor) -> List[Optional[torch.Tensor]]:
@@ -239,12 +225,12 @@ def _library() -> ctypes.CDLL:
     lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
     lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
                                   i32, i64, i32, ptr]
-    lib.fused_mlp_wide_init.argtypes = [ints, ints, ints]
+    lib.fused_mlp_wide_init.argtypes = []
     lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
     lib.fused_mlp_wide_bwd_f32.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptrs, ints, i32,
                                            i64, ptr, ptr, ptr, i32, ptr]
     lib.fused_mlp_wide_bwd_bf16.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64,
-                                            ptrs, ptr, i32, i64, i32, i32, i32, ptr]
+                                            ptrs, ptr, i32, i64, i32, i32, ptr]
     for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd,
                lib.fused_mlp_wide_init, lib.fused_mlp_wide_fwd, lib.fused_mlp_wide_bwd_f32,
                lib.fused_mlp_wide_bwd_bf16):
@@ -253,21 +239,15 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _wide_library(device: int) -> Tuple[ctypes.CDLL, int]:
-    """(the library, the dW kernel's resident clusters of 3), with the wide
-    kernels' shared-memory limit lifted and their clusters checked on
+def _wide_library(device: int) -> ctypes.CDLL:
+    """The library, with the wide kernels' shared-memory limit lifted on
     ``device`` (once per device)."""
     lib = _library()
-    chain, dw, clusters = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.fused_mlp_wide_init(ctypes.byref(chain), ctypes.byref(dw),
-                                      ctypes.byref(clusters))
+        err = lib.fused_mlp_wide_init()
     if err != 0:
         raise RuntimeError(f"fused_mlp wide kernels: init failed (error {err})")
-    if (chain.value, dw.value) != (WIDE_CHAIN_SMEM, WIDE_DW_SMEM):
-        raise RuntimeError(f"fused_mlp wide kernels take {chain.value}, {dw.value} bytes of "
-                           f"shared memory; the plan has {WIDE_CHAIN_SMEM}, {WIDE_DW_SMEM}")
-    return lib, clusters.value
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -471,8 +451,8 @@ def fused_mlp_wide(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib, clusters = _wide_library(x.device.index)
-    plan = wide_plan(widths, x.shape[0], x.dtype, _sms(x.device.index), clusters)
+    lib = _wide_library(x.device.index)
+    plan = wide_plan(widths, x.shape[0], x.dtype, _sms(x.device.index))
     w_ptrs, c_widths = _c_args(weights, widths)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -504,8 +484,8 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if m == 0:
         dw.zero_()
     else:
-        lib, clusters = _wide_library(x.device.index)
-        plan = wide_plan(widths, m, dtype, _sms(x.device.index), clusters)
+        lib = _wide_library(x.device.index)
+        plan = wide_plan(widths, m, dtype, _sms(x.device.index))
         scratch = torch.empty(plan.scratch_elems, dtype=dtype, device=x.device)
         partial = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
         w_ptrs, c_widths = _c_args(weights, widths)
@@ -520,7 +500,7 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     len(weights), m, (ctypes.c_void_p * len(planes))(*planes),
                     partial.data_ptr(), plan.dw_splits,
                     plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
-                    int(plan.dw_multicast), plan.chain_ctas, stream)
+                    plan.chain_ctas, stream)
             else:
                 weights_t = [w.t().contiguous() for w in weights]
                 wt_ptrs, _ = _c_args(weights_t, widths)

@@ -173,28 +173,6 @@ def test_fused_mlp_wide_backward_is_deterministic_and_skips_dx(cuda_device):
     assert all(map(torch.equal, dws, dws2)) and all(map(torch.equal, dws, dws3))
 
 
-@pytest.mark.parametrize("rows", [20000, 132 * 128 + 1])
-def test_fused_mlp_wide_backward_cluster_path_is_deterministic(cuda_device, rows, monkeypatch):
-    """With the dW slices of a layer in one cluster that multicasts the g
-    planes (WIDE_DW_MULTICAST), the bf16 backward gives the plain versions'
-    bits on exact inputs and the same bits twice on random ones."""
-    monkeypatch.setattr(fm, "WIDE_DW_MULTICAST", True)
-    widths = (64,) + (257,) * 8
-    _, clusters = fm._wide_library(cuda_device.index or 0)
-    plan = fm.wide_plan(fm.padded_widths(widths), rows, torch.bfloat16,
-                        fm._sms(cuda_device.index or 0), clusters)
-    assert plan.dw_multicast and plan.dw_slices == 3
-    xe, wse, ge = fm.exact_inputs(widths, rows, torch.bfloat16, cuda_device)
-    dx, dws = fm.fused_mlp_backward(xe, wse, ge)
-    dx_ref, dws_ref = fm.fused_mlp_backward_reference(xe, wse, ge)
-    assert torch.equal(dx, dx_ref) and all(map(torch.equal, dws, dws_ref))
-    x, ws = _net(widths, rows, torch.bfloat16, cuda_device)
-    g = _grad_out(rows, 257, torch.bfloat16, cuda_device)
-    dx, dws = fm.fused_mlp_backward(x, ws, g)
-    dx2, dws2 = fm.fused_mlp_backward(x, ws, g)
-    assert torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("widths", WIDE)
 def test_fused_mlp_wide_keeps_nan(cuda_device, widths, dtype):
