@@ -1,13 +1,18 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
+``python3 chip_smoke.py --wide-split`` prints phase 9's split of the wide
+fused-MLP backward by kernel alone, for the package beside the script (a
+copy of the script in another checkout reads that checkout's kernels).
+
 Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: compiles the three sources under myc_nerfs_tpu_torch/csrc/
    (fused_mlp.cu, grid_encode.cu, grid_probe.cu) with nvcc, all at once,
    and prints each one's build time; then counts, in the built libraries'
-   SASS (cuobjdump -sass), the tensor-core instructions of the bf16
-   fused-MLP kernels, HMMA (mma.sync) in the narrow ones and HGMMA (wgmma)
-   in the wide chain and dW kernels, which must not be 0, and the global
+   SASS (cuobjdump -sass), the tensor-core instructions of the fused-MLP
+   kernels, HMMA (mma.sync) in the narrow bf16 ones and HGMMA (wgmma) in
+   the wide bf16 chain and dW kernels and the wide f32 forward and dW
+   kernels (TF32), which must not be 0, and the global
    reductions (RED) and atomics (ATOM) of the encode backward, which must
    add by RED.
 3. kernel: the fused_mlp forward kernel against its plain PyTorch version
@@ -18,7 +23,9 @@ Phases, each ending in one line (a failure exits non-zero):
    graph_ms) and of one call from the host (call_ms, CUDA events);
    library_ms is the cuBLAS chain (torch.mm + relu_ per layer, in the
    dtype); bound_ms and share_of_bound against the H100 bound of the
-   bytes or flops (ops/cuda/fused_mlp.py::mlp_work).
+   bytes or flops (ops/cuda/fused_mlp.py::mlp_work; in f32 the flops of
+   three TF32 passes, and beside it the CUDA cores' FMA bound,
+   bound_ms_fma).
 4. kernel_bwd: the backward kernel (fused_mlp_backward) against
    fused_mlp_backward_reference at the same shapes and rows: dx and every
    dW, with their tolerances, and the same times; library_ms is the cuBLAS
@@ -64,7 +71,8 @@ Phases, each ending in one line (a failure exits non-zero):
    precedes them): one render chunk stage by stage, one 800x800 frame and
    one train block at 4096 rays under torch.profiler, with the device's
    busy share of the wall time (utils/profiling.py); the wide fused-MLP
-   backward by kernel and one train block of the fused flagship (phase 13).
+   backward by kernel in bf16 and in f32, and one train block of the fused
+   flagship (phase 13).
 10. split: phase 8's encode comparison at many trained states: the config
    trained again from another seed, checked after each of its 16 blocks on
    two batches; one line per check and a summary.
@@ -78,18 +86,24 @@ Phases, each ending in one line (a failure exits non-zero):
    integer inputs on which every sum is exact (ops/cuda/fused_mlp.py::
    exact_inputs at 16384 rows, where the magnitudes summed into any
    element stay below 2^24, which is checked; any order gives the same
-   bits, so dx and every dW must be equal), and random inputs: f32 to
-   BWD_TOL, bf16 by the norm of the error (a pre-activation within a
-   rounding of 0 flips the ReLU mask between two summation orders); it
-   must give the same bits twice. In bf16 two planted faults of the
+   bits, so dx and every dW must be equal; in f32 the largest |post| and
+   |g| of the draw are printed against 3xTF32's exact limits), and random
+   inputs: f32 to BWD_TOL, bf16 by the norm of the error (a pre-activation
+   within a rounding of 0 flips the ReLU mask between two summation
+   orders); it must give the same bits twice. In f32 two planted faults of
+   the 3xTF32 products, computed by the plain versions with the fault (one
+   TF32 pass of rounded operands; the small(a) big(b) term dropped; in the
+   forward, and in dW, the backward's 3xTF32 part), must each be seen by
+   the random-input checks forward and backward. In bf16 two planted faults of the
    backward, computed by the plain backward with the fault (dW from the
    gradient rounded to bf16, i.e. no lo term; the dgrad product on the
    unrounded gradient), are read against both checks: the exact check
    must see each of them (the run fails if a fault gives the reference's
    bits), and their norm error on random inputs is printed beside
-   WIDE_BWD_NORM_TOL. A NaN and an inf planted in x must come out where
-   the plain versions put them (wide_non_finite): the same NaN and inf
-   elements forward, the same non-finite elements of dx and every dW.
+   WIDE_BWD_NORM_TOL. A NaN, an inf and a NaN whose payload lies in the
+   low 13 bits alone planted in x must come out where the plain versions
+   put them (wide_non_finite): the same NaN and inf elements forward, the
+   same non-finite elements of dx and every dW.
 12. nerf_train (after phase 8): run_net.build_trainer on
    configs/nerf/budget_synthetic.py as the file gives it (OriginNeRF,
    skips (4,), bf16, lr 1e-3, n_coarse 128, n_compact 32, 4096 rays) on
@@ -103,7 +117,10 @@ Phases, each ending in one line (a failure exits non-zero):
    FLAGSHIP_GRAD_SEEDS batches every parameter's gradient through the
    kernels against the gradient through the plain versions on the card
    (the model's mlp seam: fused_mlp_plain), and the planted faults of
-   phase 11 read against the same limit; one held-out 128x128 view
+   phase 11 read against the same limit; the same in f32 on a model of its
+   own (use_bf16=False, holding the trained weights and grid, no further
+   steps) with a limit of its own, FLAGSHIP_F32_GRAD_TOL, and the planted
+   f32 faults of phase 11 read against it; one held-out 128x128 view
    rendered through the fused path.
 14. hash_march: the non-fused path (grid_impl 'hash', fused_march=False,
    compact_source 'network') trained 64 steps on the blobs scene; the
@@ -123,6 +140,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -168,9 +186,11 @@ TABLE_E2E_REL_TOL = 3e-3
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
 BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
 SPLIT_BATCHES = 2                        # batches checked at each state (phase 10)
-# the narrow bf16 kernels run mma.sync (SASS HMMA), the wide ones wgmma (HGMMA)
+# the narrow bf16 kernels run mma.sync (SASS HMMA), the wide bf16 ones and
+# the wide f32 forward and dW wgmma (HGMMA; TF32 for f32)
 SASS_KERNELS = ("fused_mlp_fwd_bf16_kernel", "fused_mlp_bwd_bf16_kernel")
-WGMMA_KERNELS = ("fused_mlp_wide_bf16_kernel", "fused_mlp_wide_dw_bf16_kernel")
+WGMMA_KERNELS = ("fused_mlp_wide_bf16_kernel", "fused_mlp_wide_dw_bf16_kernel",
+                 "fused_mlp_wide_tf32_kernel", "fused_mlp_wide_dw_tf32_kernel")
 # OriginNeRF's fused backbone: 64 -> 257 x 8 with the biases folded in, at
 # the flagship's train step (4096 rays x n_compact 32)
 WIDE_CHAIN = (64,) + (257,) * 8
@@ -189,8 +209,15 @@ EXACT_LIMIT = 2.0 ** 24
 WIDE_BWD_NORM_TOL = 2.0 ** -5
 # planted faults of the bf16 backward (planted_backward)
 FAULTS = ("no_lo", "unrounded_g")
-# phase 11's non-finite check: x rows that get a NaN and an inf
-NONFINITE_ROWS = (5, 4100)
+# planted faults of the f32 kernels' 3xTF32 products (tf32_mm): one TF32
+# pass of operands rounded to TF32, and the small(a) big(b) term dropped
+F32_FAULTS = ("one_pass", "no_small_a")
+# 3xTF32 is exact on a product of an operand of at most 11 significant bits
+# and one of at most 22: integers below 2^11 and 2^22
+TF32_EXACT_BITS = (11, 22)
+# phase 11's non-finite check: x rows that get a NaN, an inf and a NaN
+# whose payload lies in the low 13 bits alone (f32 0x7f800001, bf16 0x7f81)
+NONFINITE_ROWS = (5, 4100, 9000)
 NERF_VIEWS, NERF_SIZE, NERF_STEPS, FLAGSHIP_STEPS, HASH_STEPS = 12, 128, 256, 128, 64
 # the train PSNR of the last block must beat the first block's by this much
 # (dB), half, rounded down, of the first chip run's rise on an H100 80GB
@@ -209,6 +236,14 @@ HASH_PSNR_RISE = 0.4
 # exact check sees them
 FLAGSHIP_GRAD_SEEDS = 8
 FLAGSHIP_GRAD_TOL = 6e-3
+# the same in f32 (an f32 model holding the trained bf16 weights): the
+# kernels' 3xTF32 forward and dW, whose accumulators the tensor cores round
+# toward zero, against the plain f32 GEMMs. Two runs on an H100 80GB HBM3 at
+# 700 W read 5.64e-5 to 6.18e-5 over their 8 batches; the limit is ~4x the
+# largest. The planted f32 faults read against it: no_small_a 3.53e-4 (seen),
+# one_pass 1.34e-5 (not: its rounding errors, to nearest, average out over
+# the rows of dW); phase 11's random-input checks see both
+FLAGSHIP_F32_GRAD_TOL = 2.5e-4
 # the encode backward's instance on the Car path (F = 2, bf16), mangled
 ENCODE_BWD_SASS = "brick_encode_bwd_kernelILi2ELb1E"
 
@@ -330,9 +365,15 @@ def mlp_inputs(widths, dtype, g):
 
 
 def bound_fields(t_k: float, work: dict) -> str:
-    """The kernel's time beside its H100 bound (mlp_work, encode_work)."""
-    return (f"kernel_ms={t_k:.4f} bound_ms={work['bound_ms']:.4f} "
-            f"bound_by={work['bound_by']} share_of_bound={work['bound_ms'] / t_k:.3f}")
+    """The kernel's time beside its H100 bound (mlp_work, encode_work); in
+    f32 beside both: three TF32 passes on the tensor cores (bound_ms) and
+    the CUDA cores' FMAs (bound_ms_fma)."""
+    out = (f"kernel_ms={t_k:.4f} bound_ms={work['bound_ms']:.4f} "
+           f"bound_by={work['bound_by']} share_of_bound={work['bound_ms'] / t_k:.3f}")
+    if "bound_ms_fma" in work:
+        out += (f" bound_ms_fma={work['bound_ms_fma']:.4f} "
+                f"share_of_fma_bound={work['bound_ms_fma'] / t_k:.3f}")
+    return out
 
 
 def add_bf16(acc: dict, err: float, t_k: float, t_c: float, t_p: float, t_l: float,
@@ -978,6 +1019,66 @@ def planted_backward(x, weights, g, need_dx=True, fault=None, sums=None):
     return g.to(x.dtype), dws
 
 
+def tf32_mm(a, b, fault=None):
+    """a @ b (f32) as the wide f32 kernels' 3xTF32 products form it, with
+    a fault: 'one_pass' rounds both operands to TF32 (nearest, ties away)
+    and takes one product; 'no_small_a' drops the small(a) big(b) term."""
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+
+    if fault == "one_pass":
+        def rnd(v):
+            return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        return rnd(a) @ rnd(b)
+    a_big, a_small = fm.split_tf32(a)
+    b_big, b_small = fm.split_tf32(b)
+    acc = torch.where(torch.isfinite(a), a_big, torch.zeros_like(a)) @ b_small + a_big @ b_big
+    return acc if fault == "no_small_a" else a_small @ b_big + acc
+
+
+def planted_forward_f32(x, weights, fault):
+    """The plain f32 forward with every product formed as a faulty kernel
+    would form it (tf32_mm)."""
+    h = x
+    for i, w in enumerate(weights):
+        h = tf32_mm(h, w, fault)
+        if i + 1 < len(weights):
+            h = torch.relu(h)
+    return h
+
+
+def planted_backward_f32(x, weights, g, need_dx=True, fault=None):
+    """fused_mlp_backward_reference in f32 with each dW formed as a faulty
+    3xTF32 dW kernel would form it (tf32_mm of post^T and g); the recompute
+    and the dgrad, on the CUDA cores in the kernels too, as the plain
+    version."""
+    post = [x]
+    for w in weights[:-1]:
+        post.append(torch.relu(post[-1] @ w))
+    dws = [None] * len(weights)
+    for i in range(len(weights) - 1, -1, -1):
+        dws[i] = tf32_mm(post[i].T.contiguous(), g, fault)
+        if i == 0 and not need_dx:
+            return None, dws
+        g = g @ weights[i].T
+        if i > 0:
+            g = g * (post[i] > 0.0)
+    return g, dws
+
+
+def exact_magnitudes(x, weights, g):
+    """The largest |post_i| and |g_i| (g_i the gradient at layer i's output)
+    of a backward on integer inputs: the operands of its 3xTF32 dW."""
+    post = [x.double()]
+    for w in weights[:-1]:
+        post.append(torch.relu(post[-1] @ w.double()))
+    g = g.double()
+    big_g = g.abs().max().item()
+    for i in range(len(weights) - 1, 0, -1):
+        g = (g @ weights[i].double().T) * (post[i] > 0)
+        big_g = max(big_g, g.abs().max().item())
+    return max(p.abs().max().item() for p in post), big_g
+
+
 def differing(a, b) -> int:
     return int((a != b).sum().item())
 
@@ -1010,13 +1111,25 @@ def phase_kernel_wide(fm) -> tuple:
             t_lp = graph_ms(lambda: library_chain(xp, wsp))
         work = fm.mlp_work(WIDE_CHAIN, WIDE_ROWS, dtype)
         ok = err <= tol and y.shape == ref.shape
+        fwd_faults = {}
+        if dtype == torch.float32:  # what the same check reads of each planted fault
+            with torch.no_grad():
+                for fault in F32_FAULTS:
+                    fwd_faults[fault] = (planted_forward_f32(x, ws, fault)
+                                         - ref).abs().max().item()
         print(f"kernel_wide: fused_mlp_wide {shape} {dtype_name(dtype)} "
               f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'BREACH'} "
               f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
               f"library_ms={min(t_l, t_lp):.4f} (cuBLAS chain 257 wide {t_l:.4f}, "
               f"padded to 272 {t_lp:.4f})", flush=True)
+        for fault, e in fwd_faults.items():
+            print(f"kernel_wide: planted f32 fault {fault} (the plain forward with it): "
+                  f"max_abs_err={e:.3e} against tol {tol:.3e}: the random-input check "
+                  f"{'sees' if e > tol else 'DOES NOT SEE'} it", flush=True)
         if not ok:
             fail(f"fused_mlp_wide {dtype}: max abs err {err} > {tol}")
+        if any(e <= tol for e in fwd_faults.values()):
+            fail(f"fused_mlp_wide f32: a planted fault reads within the limit: {fwd_faults}")
         if dtype == torch.bfloat16:  # the flagship's dtype
             fwd = {"max_abs_err": err, "ms": t_k, "call_ms": t_c, "plain_ms": t_p,
                    "library_ms": min(t_l, t_lp), "library_unpadded_ms": t_l,
@@ -1035,6 +1148,14 @@ def phase_kernel_wide(fm) -> tuple:
                         for a, b in zip([dx] + dws, [dx_ref] + dws_ref))
         plain_same = torch.equal(dx_pl, dx_ref) and all(map(torch.equal, dws_pl, dws_ref))
         ok_exact = not any(exact_diff) and max(sums) < EXACT_LIMIT and plain_same
+        if dtype == torch.float32:  # the 3xTF32 dW's operands against its exact limits
+            big_post, big_g = exact_magnitudes(xe, wse, ge_)
+            lo, hi = (2.0 ** b for b in TF32_EXACT_BITS)
+            within = min(big_post, big_g) < lo and max(big_post, big_g) < hi
+            print(f"kernel_wide_bwd: f32 exact inputs ({WIDE_EXACT_ROWS} rows): largest "
+                  f"|post| {big_post:.0f}, |g| {big_g:.0f}; 3xTF32 exact on every dW "
+                  f"product (one operand < 2^{TF32_EXACT_BITS[0]}, the other < "
+                  f"2^{TF32_EXACT_BITS[1]}): {within}", flush=True)
         seen = {}
         if dtype == torch.bfloat16:
             for fault in FAULTS:
@@ -1056,11 +1177,22 @@ def phase_kernel_wide(fm) -> tuple:
             fdx, fdws = planted_backward(x, ws, gy, fault=fault)
             planted[fault] = (rel(fdx, dx_ref), max(rel(a, b) for a, b in zip(fdws, dws_ref)))
         del dx2, dws2
+        f32_seen = {}
         if dtype == torch.float32:
             tol_dx, tol_dw = BWD_TOL[dtype]
-            ok_rand = all(e <= (tol_dx if i == 0 else tol_dw) * max(1.0, b.abs().max().item())
-                          for i, (e, b) in enumerate(zip(max_errs, [dx_ref] + dws_ref)))
+
+            def within(errs):
+                return [e <= (tol_dx if i == 0 else tol_dw) * max(1.0, b.abs().max().item())
+                        for i, (e, b) in enumerate(zip(errs, [dx_ref] + dws_ref))]
+
+            ok_rand = all(within(max_errs))
             rand_tol = f"max_abs dx {tol_dx:g} dW {tol_dw:g} of scale"
+            for fault in F32_FAULTS:  # what the same check reads of each planted fault
+                fdx, fdws = planted_backward_f32(x, ws, gy, fault=fault)
+                f_errs = [(a - b).abs().max().item()
+                          for a, b in zip([fdx] + fdws, [dx_ref] + dws_ref)]
+                f32_seen[fault] = (f_errs[0], max(f_errs[1:]), not all(within(f_errs)))
+                del fdx, fdws
         else:
             ok_rand = max(norm_errs) <= WIDE_BWD_NORM_TOL
             rand_tol = f"norm {WIDE_BWD_NORM_TOL:g}"
@@ -1076,6 +1208,7 @@ def phase_kernel_wide(fm) -> tuple:
         b_lp = graph_ms(lambda: torch.autograd.grad(library_chain(xpl, wpl), [xpl] + wpl, gyp))
         b_work = fm.mlp_work(WIDE_CHAIN, WIDE_ROWS, dtype, backward=True)
         unseen = [f for f, counts in seen.items() if not any(counts)]
+        unseen += [f for f, (_, _, caught) in f32_seen.items() if not caught]
         ok = ok_exact and ok_rand and same and not unseen
         print(f"kernel_wide_bwd: fused_mlp_wide_backward {shape} {dtype_name(dtype)} "
               f"exact inputs ({WIDE_EXACT_ROWS} rows, largest sum of magnitudes "
@@ -1094,10 +1227,15 @@ def phase_kernel_wide(fm) -> tuple:
                   f"random inputs |a-b|/|b| dx={planted[fault][0]:.2e} "
                   f"dW max={planted[fault][1]:.2e} against tol {WIDE_BWD_NORM_TOL:g}",
                   flush=True)
+        for fault, (e_dx, e_dw, caught) in f32_seen.items():
+            print(f"kernel_wide_bwd: planted f32 fault {fault} (the plain backward with it in "
+                  f"dW): random inputs max_abs dx={e_dx:.3e} dW={e_dw:.3e} (tol {rand_tol}): "
+                  f"the random-input check {'sees' if caught else 'DOES NOT SEE'} it",
+                  flush=True)
         if not ok:
             fail(f"fused_mlp_wide_backward {dtype}: exact {exact_diff} (sums {max(sums)}, "
                  f"plain steps equal {plain_same}) random {norm_errs} deterministic {same} "
-                 f"planted faults the exact check cannot see {unseen}")
+                 f"planted faults no check sees {unseen}")
         wide_non_finite(fm, x, ws, gy, dtype)
         if dtype == torch.bfloat16:
             bwd = {"max_abs_err": exact_err, "max_abs_err_random": max(max_errs),
@@ -1109,17 +1247,23 @@ def phase_kernel_wide(fm) -> tuple:
 
 
 def wide_non_finite(fm, x, ws, gy, dtype) -> None:
-    """Phase 11's non-finite check: a NaN and an inf planted in x (rows
-    NONFINITE_ROWS) come out of the wide kernels where the plain versions
-    put them. Forward: the same NaN and the same inf elements. Backward:
-    the same non-finite elements of dx and every dW. An inf may read NaN
-    there: the kernel forms dW from the gradient's bf16 head and rest, two
-    products, and inf times a rest of 0, or of the head's opposite sign,
-    is NaN where the plain version's one product is inf."""
+    """Phase 11's non-finite check: a NaN, an inf and a NaN whose payload
+    lies in the low 13 bits alone (cleared, as a TF32 read clears them, it
+    would read inf) planted in x (rows NONFINITE_ROWS) come out of the wide
+    kernels where the plain versions put them. Forward: the same NaN and
+    the same inf elements. Backward: the same non-finite elements of dx and
+    every dW. An inf may read NaN there: the kernels form dW from two or
+    three products (bf16: the gradient's head and rest; f32: 3xTF32), and
+    inf times a rest of 0, or of the head's opposite sign, is NaN where the
+    plain version's one product is inf."""
     rows = NONFINITE_ROWS
     xb = x[:rows[-1] + 64].clone()
     xb[rows[0], 3] = float("nan")
     xb[rows[1], 10] = float("inf")
+    if dtype == torch.float32:  # a NaN that reads inf once its low 13 bits are cleared
+        xb.view(torch.int32)[rows[2], 7] = 0x7F800001
+    else:
+        xb.view(torch.int16)[rows[2], 7] = 0x7F81
     g = gy[:xb.shape[0]]
     with torch.no_grad():
         y, ref = fm.fused_mlp(xb, ws), fm.fused_mlp_reference(xb, ws)
@@ -1132,7 +1276,8 @@ def wide_non_finite(fm, x, ws, gy, dtype) -> None:
                 for a, b in zip([dx] + dws, [dx_ref] + dws_ref)]
     planted = bool((~torch.isfinite(y[list(rows)])).any(1).all())
     print(f"kernel_wide_nonfinite: {dtype_name(dtype)} NaN at x[{rows[0]}, 3], inf at "
-          f"x[{rows[1]}, 10] of {xb.shape[0]} rows: forward NaN {int(torch.isnan(y).sum())} "
+          f"x[{rows[1]}, 10], a low-payload NaN at x[{rows[2]}, 7] of {xb.shape[0]} rows: "
+          f"forward NaN {int(torch.isnan(y).sum())} "
           f"(plain {int(torch.isnan(ref).sum())}) inf {int(torch.isinf(y).sum())} "
           f"(plain {int(torch.isinf(ref).sum())}) same elements={fwd_same}; backward "
           f"non-finite dx {int((~torch.isfinite(dx)).sum())} (plain "
@@ -1220,36 +1365,16 @@ def phase_nerf_train(card: str):
     return launches, (cfg, data)
 
 
-def phase_flagship_fused(card: str, nerf_ctx):
-    """Phase 13: the fused flagship through NGPTrainer(model=)."""
-    from functools import partial
-
-    from myc_nerfs_tpu_torch.cli import run_net
+def flagship_gradients(model, trainer, data, gen, planted: dict):
+    """Every parameter's gradient of a flagship through the kernels against
+    the gradient through the plain versions (the model's mlp seam:
+    fused_mlp_plain) on FLAGSHIP_GRAD_SEEDS batches, |a-b|/|b| per
+    parameter; and of each planted backward (a plain backward with a fault)
+    on the first batch. Returns (max per parameter, max per batch, max per
+    planted fault)."""
     from myc_nerfs_tpu_torch.data.blender import RayBatcher
-    from myc_nerfs_tpu_torch.models import ori_nerf
     from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
-    from myc_nerfs_tpu_torch.train.ngp_trainer import NGPTrainer
-    from myc_nerfs_tpu_torch.utils.metrics import psnr
 
-    cfg, data = nerf_ctx
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    base, tcfg = run_net.build_trainer(cfg, gen, device="cuda")
-    model = ori_nerf.OriginNeRFModel(ori_nerf.OriginNeRFConfig(skips=(), use_bf16=True,
-                                                               use_fused=True),
-                                     device="cuda", generator=gen)
-    trainer = NGPTrainer(None, base.rcfg, tcfg, gen, device="cuda", model=model)
-    reset_launches()
-    t0 = time.perf_counter()
-    hist = run_net.train_loop(trainer, tcfg, data, FLAGSHIP_STEPS, gen, log=lambda msg: None)
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    launches = read_launches()
-    bpsnr = block_psnr(hist)
-    finite = all(torch.isfinite(p).all().item() for p in model.param_list())
-
-    # every parameter's gradient through the kernels and through the plain
-    # versions (the model's mlp seam) on FLAGSHIP_GRAD_SEEDS batches, and
-    # through the planted faults of phase 11 on the first
     def gradients(batch, mlp):
         model.mlp = mlp
         try:
@@ -1274,13 +1399,59 @@ def phase_flagship_fused(card: str, nerf_ctx):
         plain = gradients(batch, fm.fused_mlp_plain)
         readings.append(errors(gradients(batch, fm.fused_mlp), plain))
         if seed == 0:
-            for fault in FAULTS:
-                planted = partial(fm.fused_mlp_plain,
-                                  backward=partial(planted_backward, fault=fault))
-                faults[fault] = max(errors(gradients(batch, planted), plain).values())
+            for name, backward in planted.items():
+                faulty = partial(fm.fused_mlp_plain, backward=backward)
+                faults[name] = max(errors(gradients(batch, faulty), plain).values())
     errs = {k: max(r[k] for r in readings) for k in readings[0]}
-    per_seed = [max(r.values()) for r in readings]
+    return errs, [max(r.values()) for r in readings], faults
+
+
+def phase_flagship_fused(card: str, nerf_ctx):
+    """Phase 13: the fused flagship through NGPTrainer(model=)."""
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.models import ori_nerf
+    from myc_nerfs_tpu_torch.train.ngp_trainer import NGPTrainer
+    from myc_nerfs_tpu_torch.utils.metrics import psnr
+
+    cfg, data = nerf_ctx
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base, tcfg = run_net.build_trainer(cfg, gen, device="cuda")
+    model = ori_nerf.OriginNeRFModel(ori_nerf.OriginNeRFConfig(skips=(), use_bf16=True,
+                                                               use_fused=True),
+                                     device="cuda", generator=gen)
+    trainer = NGPTrainer(None, base.rcfg, tcfg, gen, device="cuda", model=model)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = run_net.train_loop(trainer, tcfg, data, FLAGSHIP_STEPS, gen, log=lambda msg: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_launches()
+    bpsnr = block_psnr(hist)
+    finite = all(torch.isfinite(p).all().item() for p in model.param_list())
+
+    # every parameter's gradient through the kernels and through the plain
+    # versions (the model's mlp seam) on FLAGSHIP_GRAD_SEEDS batches, and
+    # through the planted faults of phase 11 on the first
+    errs, per_seed, faults = flagship_gradients(
+        model, trainer, data, gen, {f: partial(planted_backward, fault=f) for f in FAULTS})
     grad_ok = max(per_seed) <= FLAGSHIP_GRAD_TOL
+
+    # the same in f32 (the f32 kernels) on an f32 model holding the trained
+    # bf16 flagship's weights and occupancy grid: no further steps
+    g32 = torch.Generator(device="cuda").manual_seed(5)
+    model32 = ori_nerf.OriginNeRFModel(ori_nerf.OriginNeRFConfig(skips=(), use_bf16=False,
+                                                                 use_fused=True),
+                                       device="cuda", generator=g32)
+    with torch.no_grad():
+        for p32, p in zip(model32.param_list(), model.param_list()):
+            p32.copy_(p.float())
+    trainer32 = NGPTrainer(None, base.rcfg, tcfg, g32, device="cuda", model=model32)
+    trainer32.state = trainer32.state._replace(occ=trainer.state.occ)
+    errs32, per_seed32, faults32 = flagship_gradients(
+        model32, trainer32, data, g32,
+        {f: partial(planted_backward_f32, fault=f) for f in F32_FAULTS})
+    grad32_ok = max(per_seed32) <= FLAGSHIP_F32_GRAD_TOL
+    del model32, trainer32
 
     # one held-out view through the fused path
     imgs, c2ws, intrs = run_net.load_eval_views(cfg)
@@ -1304,6 +1475,14 @@ def phase_flagship_fused(card: str, nerf_ctx):
           + " ".join(f"{k}={v:.2e}" for k, v in faults.items())
           + f"; val view {NERF_SIZE}x{NERF_SIZE} psnr={val:.3f} "
           f"render_launches fused_mlp_wide={val_launches} [{card}]", flush=True)
+    worst32 = max(errs32, key=errs32.get)
+    print(f"flagship_fused: f32 OriginNeRF D=8 W=256 skips=() use_fused, the trained bf16 "
+          f"weights: gradient kernels vs plain versions |a-b|/|b| on {FLAGSHIP_GRAD_SEEDS} "
+          f"batches: max per batch " + " ".join(f"{v:.2e}" for v in per_seed32)
+          + f"; max {errs32[worst32]:.2e} ({worst32}) tol {FLAGSHIP_F32_GRAD_TOL:.2e}; planted "
+          f"f32 faults (first batch, max) "
+          + " ".join(f"{k}={v:.2e} ({'seen' if v > FLAGSHIP_F32_GRAD_TOL else 'not seen'})"
+                     for k, v in faults32.items()) + f" [{card}]", flush=True)
     if not (launches["fused_mlp_wide"] and launches["fused_mlp_wide_bwd"]):
         fail(f"the fused flagship did not run the wide kernels: {launches}")
     if not finite:
@@ -1312,6 +1491,8 @@ def phase_flagship_fused(card: str, nerf_ctx):
         fail(f"fused flagship train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}")
     if not grad_ok:
         fail(f"fused flagship gradients disagree with the plain versions: {errs}")
+    if not grad32_ok:
+        fail(f"f32 fused flagship gradients disagree with the plain versions: {errs32}")
     if not render_ok:
         fail("the fused flagship's val render is not finite or ran no wide kernel")
     launches["fused_mlp_wide"] += val_launches
@@ -1350,6 +1531,24 @@ def phase_hash_march(card: str):
     if not bpsnr[-1] > bpsnr[0] + HASH_PSNR_RISE:
         fail(f"hash_march train PSNR rose from {bpsnr[0]:.3f} to {bpsnr[-1]:.3f}")
     return launches
+
+
+def wide_backward_split(card: str) -> None:
+    """Phase 9's split of the wide fused-MLP backward at WIDE_CHAIN and
+    WIDE_ROWS by kernel, bf16 and f32 (also run alone by --wide-split)."""
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand((WIDE_ROWS, WIDE_CHAIN[0]), device="cuda", generator=g).to(torch.bfloat16)
+    ws = [(torch.randn((a, b), device="cuda", generator=g) / a ** 0.5).to(torch.bfloat16)
+          for a, b in zip(WIDE_CHAIN[:-1], WIDE_CHAIN[1:])]
+    gy = torch.randn((WIDE_ROWS, WIDE_CHAIN[-1]), device="cuda", generator=g).to(torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, gy, ws = x.to(dtype), gy.to(dtype), [w.to(dtype) for w in ws]
+        fm.fused_mlp_backward(x, ws, gy)
+        prof = profiling.device_profile(lambda: fm.fused_mlp_backward(x, ws, gy))
+        print_profile(f"profile: fused_mlp_wide_backward {dtype_name(dtype)} {WIDE_ROWS} rows, "
+                      "by kernel", prof, card)
 
 
 def phase_profile(card: str, train_ctx, flagship_ctx) -> None:
@@ -1395,16 +1594,7 @@ def phase_profile(card: str, train_ctx, flagship_ctx) -> None:
                   f"({samples:.0f} samples per step), per step", prof, card, per=S,
                   wall_ms=wall_ms)
 
-    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
-
-    g = torch.Generator(device="cuda").manual_seed(6)
-    x = torch.rand((WIDE_ROWS, WIDE_CHAIN[0]), device="cuda", generator=g).to(torch.bfloat16)
-    ws = [(torch.randn((a, b), device="cuda", generator=g) / a ** 0.5).to(torch.bfloat16)
-          for a, b in zip(WIDE_CHAIN[:-1], WIDE_CHAIN[1:])]
-    gy = torch.randn((WIDE_ROWS, WIDE_CHAIN[-1]), device="cuda", generator=g).to(torch.bfloat16)
-    fm.fused_mlp_backward(x, ws, gy)
-    prof = profiling.device_profile(lambda: fm.fused_mlp_backward(x, ws, gy))
-    print_profile(f"profile: fused_mlp_wide_backward bf16 {WIDE_ROWS} rows, by kernel", prof, card)
+    wide_backward_split(card)
 
     trainer, tcfg, data, gen = flagship_ctx
     S, n_rays = tcfg.update_den_freq, 4096
@@ -1458,6 +1648,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if sys.argv[1:] == ["--wide-split"]:  # phase 9's wide backward split alone, then stop
+        wide_backward_split(smi)
+        return
 
     from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
 

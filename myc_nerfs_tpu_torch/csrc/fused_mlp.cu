@@ -1,6 +1,7 @@
 // Fused bias-free MLP for Hopper (sm_90a): y = Wn(...relu(W1 relu(W0 x))...),
 // forward and backward, in bf16 on the tensor cores and in f32 on the CUDA
-// cores.
+// cores or, for the wide chains' forward and dW, on the TF32 tensor cores in
+// three passes.
 //
 // The forward replaces myc_nerfs_tpu/ops/pallas/fused_mlp.py::_fwd_kernel and
 // the backward replaces _bwd_kernel (the Pallas TPU kernels reached through
@@ -20,8 +21,10 @@
 // 6-14 kflop against 96 bytes of x and y (bf16), so a kernel that keeps every
 // intermediate on chip is bound by those bytes: 7.5 us for 262144 rows on an
 // H100 (3.35 TB/s), against 1.6-3.8 us of bf16 tensor-core time (989
-// TFLOP/s). In f32 there are no tensor cores that keep f32 (TF32 keeps 10
-// mantissa bits), and 67 TFLOP/s of FMA bound it instead (24-160 us).
+// TFLOP/s). No tensor core keeps f32 operands (TF32 keeps 10 mantissa
+// bits); f32-accurate products cost three TF32 passes (3 x flops at 495
+// TFLOP/s, the bound utils/timing.py states) or FMAs at 67 TFLOP/s, which
+// the narrow f32 kernels below use (24-160 us).
 //
 // bf16 design (mma.sync.m16n8k16 bf16 -> f32, ldmatrix):
 //   - each CTA stages all weights once in shared memory as bf16, [din][dout+8]
@@ -53,7 +56,7 @@
 //     CTA writes its partial to a [ctas, sum |W_i|] f32 workspace and a
 //     second kernel sums the partials in CTA order.
 //
-// f32 design (CUDA cores, register blocking): activations in shared memory,
+// narrow f32 design (CUDA cores, register blocking): activations in shared memory,
 // stored k-major ([k][row]) so that a thread's 4 rows at one k are one
 // float4; each thread computes a 4 x 4 micro-tile, so one weight float4 and
 // one activation float4 feed 16 FMAs (the backward's dW and dgrad read
@@ -67,7 +70,8 @@
 // Chains wider than 64 (up to 272) take the wide kernels further down
 // (fused_mlp_wide_fwd / fused_mlp_wide_bwd_*): weights streamed through
 // shared memory a chunk at a time, and a backward through global scratch;
-// in bf16 on wgmma with TMA (hopper.cuh).
+// on wgmma with TMA and bulk copies (hopper.cuh), bf16 directly and f32 as
+// 3xTF32 where the f32 limits allow it.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see ops/cuda/_build.py). Plain C entry
@@ -865,7 +869,11 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 // 0.14 ms at 989 TFLOP/s bf16), against 0.7 KB of x and y per row (0.03 ms):
 // the tensor cores. The backward moves its scratch (post_i and g_i of the
 // hidden layers) through device memory: written once and read once, 1.6 GB
-// each way at 131072 rows in bf16, about 1 ms at 3.35 TB/s.
+// each way at 131072 rows in bf16, about 1 ms at 3.35 TB/s. In f32 the
+// products take three TF32 passes: 3 x 125.5 Gflop forward and 3 x 359.2
+// backward at 131072 rows of the 257-wide chain, 0.761 and 2.18 ms at 495
+// TFLOP/s, against 1.87 and 5.36 ms of FMA at 67; the f32 scratch (post_i
+// and g_i, 2.0 GB each way) is 1.2 ms of memory time.
 //
 // bf16 design (wgmma, TMA, mbarriers; hopper.cuh):
 //   - chain kernels (kind 0 the forward, 2 the recompute, 1 the dgrad): a
@@ -908,166 +916,55 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 //     multicast: a cluster of the slices sharing them ran slower on an H100
 //     than independent CTAs in several waves).
 //
-// f32 design (CUDA cores): 64-row tiles of k-major activations, 4x4
-// register micro-tiles, weights read through the cache and W^T from the
-// wrapper; the backward's scratch in f32 (post_i, the masked g_i), and a
-// tiled dW_i = post_i^T g_i of 64 x 64 tiles.
+// f32 design (replaces the wide chains' first CUDA-core kernels, which ran
+// 4x4 register micro-tiles with every weight re-read from L2 per 64-row CTA
+// and a dW of 64 x 64 tiles that read the scratch five times):
+//   - 3xTF32 arithmetic, for the forward and dW: every f32 operand v is
+//     split as v = big + small (tf32_split), big v with its low 13 mantissa
+//     bits cleared, small the TF32 rounding of v - big (exact in f32). Each
+//     product is three TF32 wgmma into one f32 accumulator, small terms
+//     first: small(a) big(b) + big(a) small(b) + big(a) big(b). Lost are
+//     small(a) small(b) (below 2^-20 of the product) and the rounding of
+//     small, and the tensor cores' accumulation is not f32's rounding to
+//     nearest: the forward reads ~3e-6 of its scale off the plain version
+//     (chip_smoke.py), against 1e-4 allowed forward and in dW.
+//     Exact where one operand has at most 11 significant bits and the other
+//     at most 22. A non-finite a takes part through big alone (its small and
+//     its `fin` copy of big are 0), so inf times a b whose small is 0 does
+//     not become NaN;
+//   - TF32 wgmma reads K-major operands only, so A comes from registers:
+//     each consumer loads its k8 fragment (4 floats) from its block in
+//     shared memory and splits it there, and one f32 activation plane is
+//     kept (two 64 x 272 blocks, 139 KB). The forward's B is prepared per
+//     call by fused_mlp_wide_tf32_prep_kernel, each layer's W^T as big and
+//     small planes of K-major cells in k8 chunks padded to the wgmma's N
+//     (8.6 MB at 272 wide); one chunk (17 KB) is one ring slot filled by one
+//     bulk copy, five in the ring. The wgmma read their A registers after
+//     they are issued, which the compiler does not know: a consumer splits
+//     two k8 steps, issues their six products, waits for them and only then
+//     lets the registers go (keep_fragments), the other consumer warpgroup
+//     keeping the tensor cores busy meanwhile;
+//   - forward (fused_mlp_wide_tf32_kernel): the bf16 kernels' skeleton
+//     (persistent grid, a producer thread, two consumer warpgroups of 64
+//     rows, setmaxnreg, full/empty mbarriers), activations in the
+//     feature-major cells of fm_off, x in by plain loads, y out from
+//     registers;
+//   - backward: the recompute and the dgrad on the CUDA cores in the plain
+//     version's summation order (fused_mlp_wide_fma_kernel: 3xTF32 would
+//     move ReLU masks and dx beyond the f32 limits, see there), each writing its
+//     blocks to planes in the feature-major layout that dW reads K-major
+//     without a transpose, the recompute a bit plane of post_i > 0 that the
+//     dgrad reads instead of post_i;
+//   - dW kernel (fused_mlp_wide_dw_tf32_kernel): dW_i = post_i^T g_i in
+//     3xTF32, post from registers (split there), g from the ring: the
+//     producer warpgroup's first thread copies 16-row slots (the CTA's
+//     128-din slice of post, all of g), its other three warps split each
+//     slot's g into big (in place) and small planes. The scratch is f32
+//     written once and read once (about 4 GB at 131072 rows; split planes
+//     from the dgrad would have made it 6 GB). Row splits and the
+//     fixed-order sum as in bf16.
 
 constexpr int kWideMax = 272;                 // widest layer the wide kernels take
-constexpr int kWideF32Rows = 64;              // f32 rows of a CTA's tile
-constexpr int kWideF32Ld = kWideF32Rows + 4;  // k-major row stride
-constexpr int kWideF32Threads = 256;
-constexpr int kDwF32Tile = 64;                // f32 dW tile of one CTA
-constexpr int kDwF32Rows = 32;
-constexpr int kDwF32Ld = kDwF32Tile + 4;
-
-constexpr size_t kWideF32Smem = 2 * size_t(kWideMax) * kWideF32Ld * sizeof(float);
-
-// f32: a chain of `steps` products over the rows: out_s = epilogue(in_s @
-// B_s), in_0 the kernel's input, in_{s+1} = out_s.
-struct WideChain {
-  const void* w[kMaxLayers];     // B_s [k[s]][n[s]], row-major
-  int k[kMaxLayers];
-  int n[kMaxLayers];
-  int steps;
-  unsigned relu;                 // bit s: ReLU on out_s
-  const void* mask[kMaxLayers];  // or null: out_s times (mask > 0), mask [m][n[s]]
-  float* gout[kMaxLayers];       // or null: out_s [m][n[s]]
-  void* dst[kMaxLayers];         // or null: out_s [m][n[s]]
-};
-
-__global__ void __launch_bounds__(kWideF32Threads, 1)
-fused_mlp_wide_f32_kernel(const float* __restrict__ in, WideChain c, long long m) {
-  extern __shared__ __align__(16) float fsm[];
-  constexpr int kLd = kWideF32Ld;
-  constexpr int kGroups = kWideF32Rows / 4;
-  float* hin = fsm;                     // k-major [kWideMax][kLd]
-  float* hout = fsm + kWideMax * kLd;
-  const long long row0 = (long long)blockIdx.x * kWideF32Rows;
-  load_tile_f32_t(hin, kLd, in, c.k[0], kWideF32Rows, row0, m);
-  __syncthreads();
-  for (int s = 0; s < c.steps; ++s) {
-    const int K = c.k[s], N = c.n[s];
-    const float* w = static_cast<const float*>(c.w[s]);
-    const bool relu_s = (c.relu >> s) & 1u;
-    const float* mk = static_cast<const float*>(c.mask[s]);
-    float* go = c.gout[s];
-    float* d = static_cast<float*>(c.dst[s]);
-    for (int it = threadIdx.x; it < kGroups * (N / 4); it += kWideF32Threads) {
-      const int r = 4 * (it % kGroups), col = 4 * (it / kGroups);
-      float o[4][4];
-      micro_fwd(o, hin, kLd, w, N, K, r, col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (relu_s)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][j] = relu(o[i][j]);
-        const long long row = row0 + r + i;
-        if (row < m) {
-          if (mk) {
-            const float4 p = *reinterpret_cast<const float4*>(mk + row * N + col);
-            o[i][0] *= p.x > 0.f ? 1.f : 0.f;
-            o[i][1] *= p.y > 0.f ? 1.f : 0.f;
-            o[i][2] *= p.z > 0.f ? 1.f : 0.f;
-            o[i][3] *= p.w > 0.f ? 1.f : 0.f;
-          }
-          const float4 v = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
-          if (go) *reinterpret_cast<float4*>(go + row * N + col) = v;
-          if (d) *reinterpret_cast<float4*>(d + row * N + col) = v;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(hout + (col + j) * kLd + r) =
-            make_float4(o[0][j], o[1][j], o[2][j], o[3][j]);
-    }
-    __syncthreads();
-    float* tmp = hin;
-    hin = hout;
-    hout = tmp;
-  }
-}
-
-// f32: dW_i = post_i^T g_i of every layer, one 64 x 64 block of one layer
-// per CTA (blockIdx.x over all layers' tiles) and one row split per
-// blockIdx.y, into partial[split][the concatenated dW].
-struct WideDw {
-  const void* post[kMaxLayers];  // post_i [m][width[i]] (post_0 = x)
-  const void* g[kMaxLayers];     // g_i [m][width[i+1]]
-  int width[kMaxLayers + 1];
-  int n_layers;
-  int dw_off[kMaxLayers];
-  int dw_floats;
-  int tile_off[kMaxLayers + 1];
-  long long rows_per_split;
-};
-
-struct DwTile {
-  int l, din, dout, k0, c0;
-  long long rbeg, rend;
-};
-
-__device__ __forceinline__ DwTile dw_tile(const WideDw& d, long long m) {
-  DwTile tl;
-  tl.l = 0;
-  while (int(blockIdx.x) >= d.tile_off[tl.l + 1]) ++tl.l;
-  tl.din = d.width[tl.l];
-  tl.dout = d.width[tl.l + 1];
-  const int tn = (tl.dout + kDwF32Tile - 1) / kDwF32Tile;
-  const int lt = blockIdx.x - d.tile_off[tl.l];
-  tl.k0 = kDwF32Tile * (lt / tn);
-  tl.c0 = kDwF32Tile * (lt % tn);
-  tl.rbeg = blockIdx.y * d.rows_per_split;
-  tl.rend = min(m, tl.rbeg + d.rows_per_split);
-  return tl;
-}
-
-__global__ void __launch_bounds__(256)
-fused_mlp_wide_dw_f32_kernel(WideDw d, long long m, float* __restrict__ partial) {
-  __shared__ __align__(16) float ps[kDwF32Rows * kDwF32Ld];
-  __shared__ __align__(16) float gs[kDwF32Rows * kDwF32Ld];
-  const DwTile tl = dw_tile(d, m);
-  const float* P = static_cast<const float*>(d.post[tl.l]);
-  const float* G = static_cast<const float*>(d.g[tl.l]);
-  const int kk = 4 * (threadIdx.x >> 4), cc = 4 * (threadIdx.x & 15);  // a 4 x 4 of the tile
-  float o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-
-  for (long long rc = tl.rbeg; rc < tl.rend; rc += kDwF32Rows) {
-    for (int i = threadIdx.x; i < kDwF32Rows * (kDwF32Tile / 4); i += 256) {
-      const int r = i / (kDwF32Tile / 4), j = i % (kDwF32Tile / 4);
-      const long long row = rc + r;
-      const int kc = tl.k0 + 4 * j, gc = tl.c0 + 4 * j;
-      float4 p = make_float4(0.f, 0.f, 0.f, 0.f), v = p;
-      if (row < tl.rend && kc < tl.din) p = *reinterpret_cast<const float4*>(P + row * tl.din + kc);
-      if (row < tl.rend && gc < tl.dout) v = *reinterpret_cast<const float4*>(G + row * tl.dout + gc);
-      *reinterpret_cast<float4*>(ps + r * kDwF32Ld + 4 * j) = p;
-      *reinterpret_cast<float4*>(gs + r * kDwF32Ld + 4 * j) = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kDwF32Rows; ++r) {
-      const float4 p = *reinterpret_cast<const float4*>(ps + r * kDwF32Ld + kk);
-      const float4 v = *reinterpret_cast<const float4*>(gs + r * kDwF32Ld + cc);
-      const float pv[4] = {p.x, p.y, p.z, p.w}, gv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pv[i], gv[j], o[i][j]);
-    }
-    __syncthreads();
-  }
-  if (tl.k0 + kk < tl.din && tl.c0 + cc < tl.dout) {
-    float* out = partial + (long long)blockIdx.y * d.dw_floats + d.dw_off[tl.l];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(out + (tl.k0 + kk + i) * tl.dout + tl.c0 + cc) =
-          make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
-  }
-}
 
 // v0, v1 -> their bf16 head and the bf16 rounding of the rest
 __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
@@ -1110,7 +1007,7 @@ constexpr size_t kChainSmem = 1024 + 2 * size_t(kActBytes) + kStages * size_t(kS
                               (2 * kStages + 2) * 8;
 constexpr size_t kDwSmem = 1024 + kDwStages * size_t(kDwSlotBytes) + 2 * kDwStages * 8;
 constexpr size_t kSmemOptin = 232448;  // the H100's opt-in dynamic shared memory per block
-static_assert(kChainSmem <= kSmemOptin && kDwSmem <= kSmemOptin && kWideF32Smem <= kSmemOptin,
+static_assert(kChainSmem <= kSmemOptin && kDwSmem <= kSmemOptin,
               "a wide kernel's CTA fits an SM");
 
 // The accumulators of a warpgroup's 64 rows x up to 272 columns: wgmma
@@ -1536,17 +1433,690 @@ fused_mlp_wide_dw_bf16_kernel(const __grid_constant__ DwArgs a) {
   }
 }
 
+// ---- f32 wide kernels (3xTF32 on wgmma) ----
+
+constexpr int kT32Stages = 5;                              // chain ring: one k8 step of B a slot
+constexpr uint32_t kT32ActBytes = kBlk * kWideMax * 4;     // a warpgroup's f32 block, 272 wide
+constexpr uint32_t kT32PlaneBytes = 8 * kWideMax * 4;      // one k8 step of B, 272 columns
+constexpr uint32_t kT32SlotBytes = 2 * kT32PlaneBytes;     // its big and small planes
+constexpr int kT32DwRows = 16;                             // dW: rows (K) per ring slot
+constexpr uint32_t kT32DwPostBytes = (kT32DwRows / 4) * (kDwSlice / 8) * kCell;
+constexpr uint32_t kT32DwPlaneBytes = kT32DwRows * kWideMax * 4;
+constexpr uint32_t kT32DwSlotBytes = kT32DwPostBytes + 2 * kT32DwPlaneBytes;  // post, g big, g small
+constexpr int kT32DwStages = 5;
+constexpr int kSplitThreads = kWgThreads - 32;             // dW: the producer warpgroup's other warps
+
+constexpr size_t kT32ChainSmem = 1024 + 2 * size_t(kT32ActBytes) +
+                                 kT32Stages * size_t(kT32SlotBytes) + 2 * kT32Stages * 8;
+constexpr size_t kT32DwSmem = 1024 + kT32DwStages * size_t(kT32DwSlotBytes) + 3 * kT32DwStages * 8;
+static_assert(kT32ChainSmem <= kSmemOptin && kT32DwSmem <= kSmemOptin,
+              "an f32 wide kernel's CTA fits an SM");
+
+// v -> big, its TF32 head (v with the low 13 mantissa bits cleared; a NaN
+// keeps a payload bit, so it stays a NaN), small, the TF32 rounding
+// (nearest, ties away) of v - big, which f32 holds exactly, and fin, big
+// where v is finite and 0 elsewhere. A non-finite v is carried by big
+// alone (small = 0, not inf - inf).
+__device__ __forceinline__ void tf32_split(float v, uint32_t& big, uint32_t& small,
+                                           uint32_t& fin) {
+  const uint32_t u = __float_as_uint(v);
+  const bool finite = (u & 0x7F800000u) != 0x7F800000u;
+  big = (u & 0xFFFFE000u) | (!finite && (u & 0x007FFFFFu) ? 0x00400000u : 0u);
+  fin = finite ? big : 0u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(finite ? v - __uint_as_float(big) : 0.f));
+}
+
+// Layout of an f32 64-row block of width w, in shared memory and in the
+// backward's scratch planes alike: [4-row group][w/8 feature groups][8
+// features][4 rows], each [8][4] cell a TF32 core matrix (128 contiguous
+// bytes) with the rows along K, as dW = post^T g contracts them. Row r,
+// feature f of the block is float ((r/4) (w/8) + f/8) 32 + (f%8) 4 + r%4;
+// a plane is its blocks one after another.
+__device__ __forceinline__ int fm_off(int w, int r, int f) {
+  return ((r >> 2) * (w >> 3) + (f >> 3)) * 32 + (f & 7) * 4 + (r & 3);
+}
+
+// columns a step's B is padded to: the N of its wgmma (wgmma_kind)
+__host__ __device__ constexpr int tf32_np(int n) { return n <= 64 ? 64 : n <= 256 ? 256 : kWideMax; }
+
+// floats of one layer's prepared B for a step of n columns and depth k: k/8
+// chunks (one ring slot each) of a big and a small plane, each [k/4 in the
+// chunk (2)][np/8 column groups][8 columns][4 k], K-major core matrices
+__host__ __device__ inline long long tf32_prep_floats(int n, int k) {
+  return (long long)(k / 8) * 16 * tf32_np(n);
+}
+
+// The weights as the f32 forward reads them, split once per call: layer i
+// as its B (W_i^T: n = dout, k = din) at off[i] floats.
+struct T32Prep {
+  const float* w[kMaxLayers];
+  int din[kMaxLayers], dout[kMaxLayers];
+  long long off[kMaxLayers];
+};
+
+__global__ void __launch_bounds__(256)
+fused_mlp_wide_tf32_prep_kernel(const __grid_constant__ T32Prep p, float* __restrict__ out) {
+  const int l = blockIdx.y, din = p.din[l], dout = p.dout[l], np = tf32_np(dout);
+  const float* w = p.w[l];
+  float* dst = out + p.off[l];
+  const long long total = (long long)np * din;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int n = int(i % np), k = int(i / np);
+    uint32_t big, small, fin;
+    tf32_split(n < dout ? w[k * dout + n] : 0.f, big, small, fin);
+    const long long o = (long long)(k >> 3) * 16 * np + ((k & 7) >> 2) * 4 * np + (n >> 3) * 32 +
+                        (n & 7) * 4 + (k & 3);
+    dst[o] = __uint_as_float(big);
+    dst[o + 8 * np] = __uint_as_float(small);
+  }
+}
+
+template <int NI>
+__device__ __forceinline__ void t32_mma(Acc& acc, const uint32_t (&a)[4], uint64_t db,
+                                        uint64_t db16, int scale) {
+  if (NI == 0)
+    hp::wgmma_m64n64k8_tf32(reinterpret_cast<float(&)[32]>(acc.a), a, db, scale);
+  else
+    hp::wgmma_m64n256k8_tf32(acc.a, a, db, scale);
+  if (NI == 2) hp::wgmma_m64n16k8_tf32(acc.b, a, db16, scale);
+}
+
+// A's fragment v (a[0..3] of the register layout) of one k8 step -> a:
+// small, fin and big (tf32_split), in their registers before the next asm
+// (the compiler would otherwise be free to compute them after the
+// wgmma.fence, and the wgmma would read stale registers).
+__device__ __forceinline__ void t32_split(const float (&v)[4], uint32_t (&a)[12]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tf32_split(v[i], a[8 + i], a[i], a[4 + i]);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// The wgmma read their A registers after they are issued, and the compiler
+// does not know it: a register it reused before the wgmma_wait<0> that
+// covers them would feed them other values. Uses the fragments after that
+// wait, so they stay in their registers until then.
+template <int N>
+__device__ __forceinline__ void keep_fragments(const uint32_t (&a)[N][12]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) asm volatile("" ::"r"(a[j][i]));
+}
+
+// acc (+)= A @ B over one k8 step (after a wgmma_fence): A's split fragment
+// a, B's big and small planes at shared addresses big_b and small_b
+// (K-major cells, lbo bytes apart along k, 128 along n). Three products,
+// small terms first: small(A) big(B) + fin(A) small(B) + big(A) big(B);
+// fin(A) is 0 where A is not finite, so a non-finite A meets B's big alone
+// (inf times a small of 0 would be NaN where the function's product is inf).
+template <int NI>
+__device__ __forceinline__ void t32_mma3(Acc& acc, const uint32_t (&a)[12], uint32_t big_b,
+                                         uint32_t small_b, uint32_t lbo, int scale) {
+  const uint32_t(&small)[4] = *reinterpret_cast<const uint32_t(*)[4]>(a);
+  const uint32_t(&fin)[4] = *reinterpret_cast<const uint32_t(*)[4]>(a + 4);
+  const uint32_t(&big)[4] = *reinterpret_cast<const uint32_t(*)[4]>(a + 8);
+  const uint64_t bb = hp::gmma_desc(big_b, lbo, kCell), bb16 = hp::gmma_desc(big_b + 32 * kCell, lbo, kCell);
+  const uint64_t sb = hp::gmma_desc(small_b, lbo, kCell), sb16 = hp::gmma_desc(small_b + 32 * kCell, lbo, kCell);
+  t32_mma<NI>(acc, small, bb, bb16, scale);
+  t32_mma<NI>(acc, fin, sb, sb16, 1);
+  t32_mma<NI>(acc, big, bb, bb16, 1);
+}
+
+// One step of the f32 forward: out = A_s @ B_s over a warpgroup's 64 rows,
+// ReLU below the top.
+struct T32Step {
+  int k, n;          // B_s is k x n
+  long long b;       // floats: B_s in the prepared weights (tf32_prep_floats(n, k))
+};
+
+struct T32Chain {
+  T32Step st[kMaxLayers];
+  const float* prep;  // the prepared weights
+  const float* in;    // x [m][k0], row-major
+  float* out;         // y [m][n of the last step], row-major
+  long long m;
+  int steps, k0;
+};
+
+// The producer thread: every step's k8 chunks of B of every tile the CTA
+// takes, in the order the consumers use them, one bulk copy a slot.
+__device__ __forceinline__ void t32_producer(const T32Chain& a, uint32_t ring, uint32_t bars,
+                                             long long tiles) {
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x)
+    for (int s = 0; s < a.steps; ++s) {
+      const T32Step& st = a.st[s];
+      const int np = tf32_np(st.n);
+      const uint32_t bytes = 64u * np;
+      for (int kc = 0; kc < st.k; kc += 8) {
+        hp::mbar_wait(bars + 8u * (kT32Stages + slot), phase ^ 1);
+        const uint32_t full = bars + 8u * slot;
+        hp::mbar_expect_tx(full, bytes);
+        hp::bulk_load(ring + slot * kT32SlotBytes, a.prep + st.b + (long long)(kc / 8) * 16 * np,
+                      bytes, full);
+        if (++slot == kT32Stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+}
+
+// acc = A @ B_s for a consumer warpgroup's block `act` (st.k wide), A's
+// fragments loaded from the block and split in registers, B's planes from
+// the ring, two k8 steps (two slots) per commit group; the warpgroup waits
+// for its products before it splits the next fragments (keep_fragments), while
+// the other consumer warpgroup keeps the tensor cores busy. NI:
+// wgmma_kind(n).
+template <int NI>
+__device__ __forceinline__ void t32_chain_mma(Acc& acc, const T32Step& st, const float* act,
+                                              uint32_t ring, uint32_t bars, int& slot,
+                                              uint32_t& phase) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+  const bool signal = lane == 0;  // one arrival per warp
+  const int kg = st.k >> 3, np = tf32_np(st.n);
+  // a[0] at row 16 warp + lane / 4, feature lane % 4 of each k8 group;
+  // a[1] 8 rows below (two 4-row groups), a[2] 4 features right
+  const float* p = act + fm_off(st.k, 16 * warp + (lane >> 2), lane & 3);
+  const int down = 2 * kg * 32;
+  acc_fence(acc);
+  for (int ks = 0; ks < kg; ks += 2) {  // k is a multiple of 16
+    uint32_t a[2][12], b[2];
+    int slots[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* q = p + 32 * (ks + j);
+      const float v[4] = {q[0], q[down], q[16], q[down + 16]};
+      t32_split(v, a[j]);
+      hp::mbar_wait(bars + 8u * slot, phase);
+      b[j] = ring + slot * kT32SlotBytes;
+      slots[j] = slot;
+      if (++slot == kT32Stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    hp::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j)  // the first product overwrites acc
+      t32_mma3<NI>(acc, a[j], b[j], b[j] + 32u * np, 16u * np, ks + j > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    keep_fragments(a);
+    if (signal) {
+      hp::mbar_arrive(bars + 8u * (kT32Stages + slots[0]));
+      hp::mbar_arrive(bars + 8u * (kT32Stages + slots[1]));
+    }
+  }
+  acc_fence(acc);
+}
+
+// A consumer warpgroup: the 64-row block `c` of each tile, every step.
+__device__ __forceinline__ void t32_consumer(const T32Chain& a, float* act, uint32_t ring,
+                                             uint32_t bars, int c, long long tiles) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+  const uint32_t bar_id = 1 + c;  // the warpgroup's named barrier
+  const uint32_t act_s = hp::smem_u32(act);
+  // the thread's accumulators: rows 16 warp + lane / 4 + 8e, columns cq, cq + 1 of each group
+  const int rq = lane >> 2, cq = 2 * (lane & 3);
+  const int kq = a.k0 / 4;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * kTile + c * kBlk;
+    // the input block, feature-major: a quad of lanes takes 4 rows of one
+    // float4 column
+    hp::named_barrier(bar_id, kWgThreads);
+    for (int i = tid; i < kBlk * kq; i += kWgThreads) {
+      const int rg = i / (4 * kq), rem = i - rg * 4 * kq;
+      const int r = 4 * rg + (rem & 3), f = 4 * (rem >> 2);
+      const long long row = row0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < a.m) v = __ldg(reinterpret_cast<const float4*>(a.in + row * a.k0 + f));
+      float* d = act + fm_off(a.k0, r, f);
+      d[0] = v.x;
+      d[4] = v.y;
+      d[8] = v.z;
+      d[12] = v.w;
+    }
+    hp::named_barrier(bar_id, kWgThreads);
+    for (int s = 0; s < a.steps; ++s) {
+      const T32Step& st = a.st[s];
+      const int groups = st.n / 8;
+      Acc acc;
+      const int kind = wgmma_kind(st.n);
+      if (kind == 2) t32_chain_mma<2>(acc, st, act, ring, bars, slot, phase);
+      else if (kind == 1) t32_chain_mma<1>(acc, st, act, ring, bars, slot, phase);
+      else t32_chain_mma<0>(acc, st, act, ring, bars, slot, phase);
+
+      // epilogue: ReLU in place over the block (now n wide) once every
+      // thread's fragments are loaded, or y from registers; straight-line
+      // over all 34 column groups, the accesses predicated
+      hp::named_barrier(bar_id, kWgThreads);
+      const bool last = s + 1 == a.steps;
+#pragma unroll
+      for (int gi = 0; gi < kWideMax / 8; ++gi)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 16 * warp + rq + 8 * e, f = 8 * gi + cq;
+          const bool in = gi < groups;
+          float2 v = acc_pair(acc, gi, e);
+          v.x = !last && v.x < 0.f ? 0.f : v.x;
+          v.y = !last && v.y < 0.f ? 0.f : v.y;
+          const uint32_t o = act_s + 4u * fm_off(st.n, r, f);
+          hp::st_shared_if(o, __float_as_uint(v.x), in && !last);
+          hp::st_shared_if(o + 16, __float_as_uint(v.y), in && !last);  // feature f + 1
+          hp::st_global_v2_if(a.out + (row0 + r) * st.n + f, v, last && in && row0 + r < a.m);
+        }
+      hp::named_barrier(bar_id, kWgThreads);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+fused_mlp_wide_tf32_kernel(const __grid_constant__ T32Chain a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hp::smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* base_p = smem_raw + (base - raw);
+  const uint32_t ring = base + 2 * kT32ActBytes;
+  const uint32_t bars = ring + kT32Stages * kT32SlotBytes;  // full[kT32Stages], empty[kT32Stages]
+  const long long tiles = (a.m + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kT32Stages; ++s) {
+      hp::mbar_init(bars + 8u * s, 1);
+      hp::mbar_init(bars + 8u * (kT32Stages + s), 2 * kWgThreads / 32);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    hp::regs_dec<kRegsProducer>();
+    if (threadIdx.x == 0) t32_producer(a, ring, bars, tiles);
+  } else {
+    hp::regs_inc<kRegsConsumer>();
+    t32_consumer(a, reinterpret_cast<float*>(base_p + (wg - 1) * kT32ActBytes), ring, bars,
+                 wg - 1, tiles);
+  }
+}
+
+// One layer of the f32 dW product. Planes are blocked as the chain's; a ring
+// slot takes 16 rows (four 4-row groups) of a 64-row block: of g, one
+// contiguous piece; of post, the CTA's din slice of each 4-row group.
+struct T32DwLayer {
+  const float* post;  // [din] plane of post_i (post_0 = x)
+  const float* g;     // [dout] plane of g_i
+  int din, dout, dw_off;
+};
+
+struct T32DwArgs {
+  T32DwLayer l[kMaxLayers];
+  float* partial;       // [splits][dw_floats]
+  long long blocks;     // 64-row blocks to sum over
+  long long per_split;  // blocks of one row split (blockIdx.y)
+  int dw_floats;
+  int slices;           // CTAs of one layer along din (blockIdx.x = layer x slices + slice)
+};
+
+// acc += post^T g over one slot's 16 rows (two k8 steps): post (A, the
+// warpgroup's 64 din rows, from registers) and g's big and small planes (B,
+// K-major cells along the rows)
+template <int NI>
+__device__ __forceinline__ void t32_dw_slot(Acc& acc, const float* post, uint32_t g, int a_off,
+                                            int gout) {
+  constexpr int kPostGroup = (kDwSlice / 8) * 32;  // floats between 4-row groups of post
+  constexpr int kSteps = kT32DwRows / 8;
+  uint32_t a[kSteps][12];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const float* q = post + a_off + 2 * ks * kPostGroup;
+    // a[0] din row lane / 4, row lane % 4; a[1] 8 din rows on; a[2] 4 rows on
+    const float v[4] = {q[0], q[32], q[kPostGroup], q[kPostGroup + 32]};
+    t32_split(v, a[ks]);
+  }
+  hp::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const uint32_t b = g + 2 * ks * gout * kCell;
+    t32_mma3<NI>(acc, a[ks], b, b + kT32DwPlaneBytes, gout * kCell, 1);
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  keep_fragments(a);
+}
+
+// dW_i rows [128 slice, 128 slice + 128) x all columns of one layer, over
+// the row split blockIdx.y, 16 rows per ring slot. The producer warpgroup's
+// first thread issues the copies and its other warps split each slot's g
+// into its big (in place) and small planes for the consumers.
+__global__ void __launch_bounds__(kWsThreads, 1)
+fused_mlp_wide_dw_tf32_kernel(const __grid_constant__ T32DwArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hp::smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* base_p = smem_raw + (base - raw);
+  // full[kT32DwStages], split[kT32DwStages], empty[kT32DwStages]
+  const uint32_t bars = base + kT32DwStages * kT32DwSlotBytes;
+  const uint32_t full0 = bars, split0 = bars + 8u * kT32DwStages, empty0 = bars + 16u * kT32DwStages;
+  const int rank = int(blockIdx.x) % a.slices;  // the slice
+  const T32DwLayer& L = a.l[blockIdx.x / a.slices];
+  const int n_active = (L.din + kDwSlice - 1) / kDwSlice;  // slices with rows
+  const bool active = rank < n_active;
+  constexpr int kParts = kBlk / kT32DwRows;                 // slots of a 64-row block
+  const long long h0 = kParts * blockIdx.y * a.per_split;  // the split's slots
+  const long long h1 = kParts * min(a.blocks, (blockIdx.y + 1) * a.per_split);
+  const int gin = L.din / 8, gout = L.dout / 8;
+  const uint32_t g_bytes = kT32DwRows * L.dout * 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kT32DwStages; ++s) {
+      hp::mbar_init(full0 + 8u * s, 1);
+      hp::mbar_init(split0 + 8u * s, kSplitThreads / 32);
+      hp::mbar_init(empty0 + 8u * s, 2 * kWgThreads / 32);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    hp::regs_dec<kRegsProducer>();
+    if (!active) return;
+    int slot = 0;
+    uint32_t phase = 0;
+    if (threadIdx.x == 0) {
+      const int np = min(kDwSlice / 8, gin - kDwSlice / 8 * rank);  // the CTA's din groups
+      for (long long h = h0; h < h1; ++h) {
+        hp::mbar_wait(empty0 + 8u * slot, phase ^ 1);
+        const uint32_t dst = base + slot * kT32DwSlotBytes, full = full0 + 8u * slot;
+        const long long blk = h / kParts;
+        const int q0 = (kT32DwRows / 4) * int(h % kParts);
+        hp::mbar_expect_tx(full, (kT32DwRows / 4) * np * kCell + g_bytes);
+        for (int q = 0; q < kT32DwRows / 4; ++q)
+          hp::bulk_load(dst + q * (kDwSlice / 8) * kCell,
+                        L.post + blk * kBlk * L.din + ((q0 + q) * gin + kDwSlice / 8 * rank) * 32,
+                        np * kCell, full);
+        hp::bulk_load(dst + kT32DwPostBytes, L.g + blk * kBlk * L.dout + q0 * gout * 32, g_bytes,
+                      full);
+        if (++slot == kT32DwStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int st = threadIdx.x - 32;
+      for (long long h = h0; h < h1; ++h) {
+        hp::mbar_wait(full0 + 8u * slot, phase);
+        uint4* gb = reinterpret_cast<uint4*>(base_p + slot * kT32DwSlotBytes + kT32DwPostBytes);
+        uint4* gs = reinterpret_cast<uint4*>(base_p + slot * kT32DwSlotBytes + kT32DwPostBytes +
+                                             kT32DwPlaneBytes);
+        for (int i = st; i < int(g_bytes / 16); i += kSplitThreads) {
+          const uint4 v = gb[i];
+          uint4 big, small;
+          uint32_t fin;
+          tf32_split(__uint_as_float(v.x), big.x, small.x, fin);
+          tf32_split(__uint_as_float(v.y), big.y, small.y, fin);
+          tf32_split(__uint_as_float(v.z), big.z, small.z, fin);
+          tf32_split(__uint_as_float(v.w), big.w, small.w, fin);
+          gb[i] = big;
+          gs[i] = small;
+        }
+        hp::fence_async_shared();
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) hp::mbar_arrive(split0 + 8u * slot);
+        if (++slot == kT32DwStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    hp::regs_inc<kRegsConsumer>();
+    const int c = wg - 1, tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+    const int m0 = kDwSlice * rank + kBlk * c;  // the warpgroup's first din row
+    const bool computes = active && m0 < L.din;
+    const int kind = wgmma_kind(L.dout);
+    const bool signal = lane == 0;
+    // the thread's a[0]: din row kBlk c + 16 warp + lane / 4 of the slice, row lane % 4
+    const int dl = kBlk * c + 16 * warp + (lane >> 2);
+    const int a_off = (dl >> 3) * 32 + (dl & 7) * 4 + (lane & 3);
+    Acc acc;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc.a[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc.b[i] = 0.f;
+    auto release = [&](int s) {
+      if (signal) hp::mbar_arrive(empty0 + 8u * s);
+    };
+    if (active) {
+      int slot = 0;
+      uint32_t phase = 0;
+      acc_fence(acc);
+      for (long long h = h0; h < h1; ++h) {
+        hp::mbar_wait(full0 + 8u * slot, phase);
+        hp::mbar_wait(split0 + 8u * slot, phase);
+        if (computes) {
+          const float* post = reinterpret_cast<const float*>(base_p + slot * kT32DwSlotBytes);
+          const uint32_t g = base + slot * kT32DwSlotBytes + kT32DwPostBytes;
+          if (kind == 2) t32_dw_slot<2>(acc, post, g, a_off, gout);
+          else if (kind == 1) t32_dw_slot<1>(acc, post, g, a_off, gout);
+          else t32_dw_slot<0>(acc, post, g, a_off, gout);
+        }
+        release(slot);
+        if (++slot == kT32DwStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      acc_fence(acc);
+    }
+    if (computes) {  // the split's partial of the warpgroup's 64 rows
+      float* out = a.partial + blockIdx.y * (long long)a.dw_floats + L.dw_off;
+      const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+      for (int gi = 0; gi < kWideMax / 8; ++gi)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = m0 + r0 + 8 * e, col = 8 * gi + cq;
+          if (d < L.din && col < L.dout)
+            *reinterpret_cast<float2*>(out + d * L.dout + col) = acc_pair(acc, gi, e);
+        }
+    }
+  }
+}
+
+// The f32 backward's chains on the CUDA cores: the recompute of the
+// post-activations (DGRAD 0) and the dgrad (DGRAD 1). The recompute's ReLU
+// masks must be the plain version's bit for bit (a mask that differs moves
+// a whole term of the gradient), and that takes the plain version's sums:
+// each element one fmaf per k in order from k = 0, as the f32 GEMM of the
+// plain version sums (the CUDA-core kernels this one replaces matched it
+// bit for bit on the H100). 3xTF32 cannot: its forward reads ~3e-6 of the
+// output's scale off the plain version on the H100 (chip_smoke.py's
+// kernel_wide line), and a recompute that far off flips the mask of every
+// pre-activation within it of zero; one flipped mask fails the f32 limit
+// on dx (1e-5 of scale). Two CTAs of 256 threads per SM walk 64-row blocks
+// (a persistent grid); the block stays in shared memory in fm_off's layout
+// (a thread's 4 rows at one feature are one float4), and each layer's
+// result replaces it once every thread is past the layer's last read. A
+// thread computes 4 rows x 17 columns (cg + 16 j; 4 columns for outputs
+// up to 64 wide): per 4 k, four float4 of activations and a float4 of B^T
+// per column (staged [n][16 k] by cp.async into a double buffer) feed the
+// FMAs. The recompute writes each block to its post plane and each
+// thread's 68 bits of post > 0 to a bit plane (fma_bit_words); the dgrad's
+// same thread reads them back as its mask, writes g_i to its plane and dx
+// from registers.
+constexpr int kFmaThreads = 256;
+constexpr int kFmaCtasPerSm = 2;
+constexpr int kFmaKc = 16;                 // k of one staged chunk of B^T
+constexpr int kFmaLd = kFmaKc + 4;         // floats between staged columns (banks spread)
+constexpr int kFmaCols = kWideMax / 16;    // 17 columns a thread
+constexpr int kFmaBitWords = (4 * kFmaCols + 31) / 32;
+constexpr size_t kFmaSmem = (size_t(kBlk) * kWideMax + 2 * size_t(kWideMax) * kFmaLd) * 4;
+static_assert(kFmaCtasPerSm * (kFmaSmem + 1024) <= 233472, "two CUDA-core chain CTAs fit an SM");
+
+// words of an f32 bit plane of `blocks` 64-row blocks: [block][word][thread]
+__host__ __device__ constexpr long long fma_bit_words(long long blocks) {
+  return blocks * kFmaBitWords * kFmaThreads;
+}
+
+struct FmaStep {
+  const float* bt;  // B^T [n][k], row-major: the recompute's W^T, the dgrad's W
+  int k, n;
+  uint32_t* bits;   // or null: the recompute writes post > 0, the dgrad reads its mask
+  float* plane;     // or null: the result block to an [n] plane
+};
+
+struct FmaChain {
+  FmaStep st[kMaxLayers];
+  const float* in;  // the input [m][k0], row-major
+  float* in_copy;   // or null: the input block to a [k0] plane
+  float* out;       // or null: the last step's result [m][n], row-major
+  long long m;
+  int steps, k0;
+};
+
+// acc[i][j] += act rows 4 rg + i, B^T column cg + 16 j, over k of one
+// staged chunk, k ascending for every element
+template <int COLS>
+__device__ __forceinline__ void fma_chunk(float (&acc)[4][kFmaCols], const float* act, int K,
+                                          int k0, const float* ws, int rg, int cg) {
+#pragma unroll 1
+  for (int k4 = 0; k4 < kFmaKc; k4 += 4) {
+    float4 a[4];  // rows 4 rg.. at k0 + k4 + u
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      a[u] = *reinterpret_cast<const float4*>(act + fm_off(K, 4 * rg, k0 + k4 + u));
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const float4 w = *reinterpret_cast<const float4*>(ws + (cg + 16 * j) * kFmaLd + k4);
+      const float wk[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[0][j] = fmaf(a[u].x, wk[u], acc[0][j]);
+        acc[1][j] = fmaf(a[u].y, wk[u], acc[1][j]);
+        acc[2][j] = fmaf(a[u].z, wk[u], acc[2][j]);
+        acc[3][j] = fmaf(a[u].w, wk[u], acc[3][j]);
+      }
+    }
+  }
+}
+
+template <int DGRAD>
+__global__ void __launch_bounds__(kFmaThreads, kFmaCtasPerSm)
+fused_mlp_wide_fma_kernel(const __grid_constant__ FmaChain c) {
+  extern __shared__ __align__(16) float fx[];
+  float* act = fx;                      // the block, [k or n] wide, fm_off
+  float* wst = fx + kBlk * kWideMax;    // [2][kWideMax][kFmaLd]
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int k0 = c.k0;
+  const long long blocks = (c.m + kBlk - 1) / kBlk;
+  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    const long long row0 = blk * kBlk;
+    __syncthreads();  // the previous block's copies have read the block
+    for (int i = tid; i < kBlk * k0 / 4; i += kFmaThreads) {
+      const int r = i / (k0 / 4), f = 4 * (i % (k0 / 4));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < c.m) v = __ldg(reinterpret_cast<const float4*>(c.in + (row0 + r) * k0 + f));
+      float* d = act + fm_off(k0, r, f);
+      d[0] = v.x;
+      d[4] = v.y;
+      d[8] = v.z;
+      d[12] = v.w;
+    }
+    __syncthreads();
+    if (c.in_copy)
+      for (int i = tid; i < kBlk * k0 / 4; i += kFmaThreads)
+        reinterpret_cast<float4*>(c.in_copy + blk * kBlk * k0)[i] =
+            reinterpret_cast<const float4*>(act)[i];
+    for (int s = 0; s < c.steps; ++s) {
+      const FmaStep& st = c.st[s];
+      const int K = st.k, N = st.n;
+      uint32_t mask[kFmaBitWords];
+#pragma unroll
+      for (int w = 0; w < kFmaBitWords; ++w)
+        mask[w] = DGRAD && st.bits ? st.bits[fma_bit_words(blk) + w * kFmaThreads + tid] : ~0u;
+      auto stage = [&](int kc, int b) {  // B^T [n][kc, kc + 16) -> stage b
+        for (int i = tid; i < N * (kFmaKc / 4); i += kFmaThreads) {
+          const int n = i >> 2, q = i & 3;
+          cp_async16(smem_addr(wst + (b * kWideMax + n) * kFmaLd + 4 * q),
+                     st.bt + (long long)n * K + kc + 4 * q, 16);
+        }
+        cp_async_commit();
+      };
+      float acc[4][kFmaCols];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kFmaCols; ++j) acc[i][j] = 0.f;
+      stage(0, 0);
+      for (int kc = 0, b = 0; kc < K; kc += kFmaKc, b ^= 1) {
+        if (kc + kFmaKc < K) stage(kc + kFmaKc, b ^ 1);
+        else cp_async_commit();
+        cp_async_wait_1();
+        __syncthreads();
+        const float* ws = wst + b * kWideMax * kFmaLd;
+        if (N <= 64) fma_chunk<4>(acc, act, K, kc, ws, rg, cg);
+        else fma_chunk<kFmaCols>(acc, act, K, kc, ws, rg, cg);
+        __syncthreads();  // the stage is free, and after the last chunk the block
+      }
+      const bool to_out = c.out != nullptr && s + 1 == c.steps;
+      uint32_t bw[kFmaBitWords] = {};
+#pragma unroll
+      for (int j = 0; j < kFmaCols; ++j) {
+        const int col = cg + 16 * j;
+        if (col >= N) continue;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bit = 4 * j + i;
+          if (DGRAD) {  // times the mask: a product, so a non-finite value stays non-finite
+            v[i] = acc[i][j] * ((mask[bit >> 5] >> (bit & 31)) & 1u ? 1.f : 0.f);
+          } else {
+            v[i] = relu(acc[i][j]);
+            bw[bit >> 5] |= uint32_t(v[i] > 0.f) << (bit & 31);
+          }
+          if (to_out && row0 + 4 * rg + i < c.m) c.out[(row0 + 4 * rg + i) * N + col] = v[i];
+        }
+        *reinterpret_cast<float4*>(act + fm_off(N, 4 * rg, col)) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if (!DGRAD && st.bits)
+#pragma unroll
+        for (int w = 0; w < kFmaBitWords; ++w)
+          st.bits[fma_bit_words(blk) + w * kFmaThreads + tid] = bw[w];
+      __syncthreads();
+      if (st.plane)
+        for (int i = tid; i < kBlk * N / 4; i += kFmaThreads)
+          reinterpret_cast<float4*>(st.plane + blk * kBlk * N)[i] =
+              reinterpret_cast<const float4*>(act)[i];
+    }
+  }
+  cp_async_wait_0();
+}
+
+// W_i^T of the layers below the top ([dout][din], row-major) for the
+// recompute's B^T, at off[i] floats into out
+struct FmaTranspose {
+  const float* w[kMaxLayers];
+  int din[kMaxLayers], dout[kMaxLayers];
+  long long off[kMaxLayers];
+};
+
+__global__ void __launch_bounds__(256)
+fused_mlp_wide_transpose_kernel(const __grid_constant__ FmaTranspose t, float* __restrict__ out) {
+  const int l = blockIdx.y, din = t.din[l], dout = t.dout[l];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < din * dout; i += gridDim.x * blockDim.x) {
+    const int n = i / din, k = i - n * din;  // out [n][k] = W [k][n]
+    out[t.off[l] + i] = t.w[l][k * dout + n];
+  }
+}
+
 bool wide_widths_ok(const int* widths, int n_layers) {
   if (n_layers < 1 || n_layers > kMaxLayers) return false;
   for (int i = 0; i <= n_layers; ++i)
     if (widths[i] <= 0 || widths[i] % 16 != 0 || widths[i] > kWideMax) return false;
   return true;
-}
-
-int launch_chain_f32(const void* in, const WideChain& c, long long m, cudaStream_t s) {
-  fused_mlp_wide_f32_kernel<<<int((m + kWideF32Rows - 1) / kWideF32Rows), kWideF32Threads,
-                              kWideF32Smem, s>>>(static_cast<const float*>(in), c, m);
-  return int(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
@@ -1621,6 +2191,24 @@ int launch_chain_bf16(const ChainArgs& a, int kind, int ctas, cudaStream_t s) {
     fused_mlp_wide_bf16_kernel<1><<<ctas, kWsThreads, kChainSmem, s>>>(a);
   else
     fused_mlp_wide_bf16_kernel<2><<<ctas, kWsThreads, kChainSmem, s>>>(a);
+  return int(cudaGetLastError());
+}
+
+// Splits every layer's weights into `prep` (prep_floats floats) as the f32
+// forward reads them and fills p's offsets. Returns 0, a cudaError_t code,
+// or -1 when prep is too small.
+int launch_prep_tf32(const void* const* weights, const int* widths, int n, float* prep,
+                     long long prep_floats, T32Prep* p, cudaStream_t s) {
+  long long off = 0;
+  for (int i = 0; i < n; ++i) {
+    p->w[i] = static_cast<const float*>(weights[i]);
+    p->din[i] = widths[i];
+    p->dout[i] = widths[i + 1];
+    p->off[i] = off;
+    off += tf32_prep_floats(widths[i + 1], widths[i]);
+  }
+  if (!prep || off > prep_floats) return -1;
+  fused_mlp_wide_tf32_prep_kernel<<<dim3(64, n), 256, 0, s>>>(*p, prep);
   return int(cudaGetLastError());
 }
 
@@ -1785,7 +2373,8 @@ extern "C" int fused_mlp_wide_init() {
       cudaSuccess)
     return int(err);
   if (kChainSmem > size_t(max_smem) || kDwSmem > size_t(max_smem) ||
-      kWideF32Smem > size_t(max_smem))
+      kT32ChainSmem > size_t(max_smem) || kT32DwSmem > size_t(max_smem) ||
+      kFmaSmem > size_t(max_smem))
     return -2;
   if ((err = cudaFuncSetAttribute(fused_mlp_wide_bf16_kernel<0>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1799,37 +2388,56 @@ extern "C" int fused_mlp_wide_init() {
       (err = cudaFuncSetAttribute(fused_mlp_wide_dw_bf16_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, int(kDwSmem))) !=
           cudaSuccess ||
-      (err = cudaFuncSetAttribute(fused_mlp_wide_f32_kernel,
+      (err = cudaFuncSetAttribute(fused_mlp_wide_tf32_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  int(kWideF32Smem))) != cudaSuccess)
+                                  int(kT32ChainSmem))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_fma_kernel<0>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kFmaSmem))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_fma_kernel<1>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kFmaSmem))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_fma_kernel<0>,
+                                  cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_fma_kernel<1>,
+                                  cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_mlp_wide_dw_tf32_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(kT32DwSmem))) != cudaSuccess)
     return int(err);
   return 0;
 }
 
 // Forward of a wide chain (widths multiples of 16 up to 272, at most 8
-// layers) over m rows, as fused_mlp_fwd; bf16 takes `ctas` CTAs (the
-// wrapper's plan: at most one per SM), f32 one CTA per 64 rows. bf16
-// tensors are 16-byte aligned. Returns 0, a cudaError_t code, -1 for
+// layers) over m rows, as fused_mlp_fwd, with `ctas` CTAs (the wrapper's
+// plan: at most one per SM). f32 splits the weights first into prep
+// (prep_floats floats: the wrapper's plan); bf16 takes no prep (null).
+// Tensors are 16-byte aligned. Returns 0, a cudaError_t code, -1 for
 // arguments the kernels do not take, or -4 when a tensor map is refused.
 extern "C" int fused_mlp_wide_fwd(const void* x, void* y, const void* const* weights,
                                   const int* widths, int n_layers, long long m, int dtype,
-                                  int ctas, void* stream) {
+                                  int ctas, float* prep, long long prep_floats, void* stream) {
   if (m < 0 || ctas < 1 || (dtype != 0 && dtype != 1) || !wide_widths_ok(widths, n_layers))
     return -1;
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = n_layers;
   if (dtype == 0) {
-    WideChain c = {};
+    T32Prep p = {};
+    int err;
+    if ((err = launch_prep_tf32(weights, widths, n, prep, prep_floats, &p, s)) != 0) return err;
+    T32Chain c = {};
+    c.prep = prep;
+    c.in = static_cast<const float*>(x);
+    c.out = static_cast<float*>(y);
+    c.m = m;
+    c.k0 = widths[0];
     c.steps = n;
-    for (int i = 0; i < n; ++i) {
-      c.w[i] = weights[i];
-      c.k[i] = widths[i];
-      c.n[i] = widths[i + 1];
-      if (i + 1 < n) c.relu |= 1u << i;
-    }
-    c.dst[n - 1] = y;
-    return launch_chain_f32(x, c, m, s);
+    for (int i = 0; i < n; ++i) c.st[i] = T32Step{widths[i], widths[i + 1], p.off[i]};
+    fused_mlp_wide_tf32_kernel<<<ctas, kWsThreads, kT32ChainSmem, s>>>(c);
+    return int(cudaGetLastError());
   }
   ChainArgs a = {};
   a.m = m;
@@ -1847,78 +2455,87 @@ extern "C" int fused_mlp_wide_fwd(const void* x, void* y, const void* const* wei
   return launch_chain_bf16(a, 0, ctas, s);
 }
 
-// f32 backward of fused_mlp_wide_fwd for m >= 1 rows. g, dx (may be null:
-// not wanted) and dw as fused_mlp_bwd; weights_t[i] is W_i^T
-// [widths[i+1]][widths[i]]. Scratch: post holds m * sum_{i=1}^{n-1} widths[i]
-// floats (the recomputed post-activations), gscr as many (the masked g of
-// each layer below the top), partial [splits][sum_i widths[i]*widths[i+1]].
-// Returns as fused_mlp_wide_fwd.
+// f32 backward of fused_mlp_wide_fwd for m >= 1 rows: the recompute and
+// the dgrad chains on the CUDA cores (each with `ctas` CTAs; the recompute
+// reads W^T, which it writes into prep first), the dW kernel over `splits`
+// row splits of `per_split` 64-row blocks and `slices` CTAs of 128 din rows
+// per layer, and the sum of the splits. g, dx (may be null: not wanted) and
+// dw as fused_mlp_bwd. planes holds 3 n pointers into the scratch, planes
+// of ceil(m / 128) * 128 rows in 64-row blocks (fm_off): post_0..post_{n-1}
+// (widths[i] wide), g of layers 0..n-1 (widths[i+1] wide; the top one a
+// copy of g), and the bit planes of post_1..post_{n-1} (fma_bit_words; the
+// first entry is unused). partial is [splits][sum_i widths[i]*widths[i+1]]
+// floats. Returns as fused_mlp_wide_fwd.
 extern "C" int fused_mlp_wide_bwd_f32(const void* x, const void* g, void* dx, void* dw,
-                                      const void* const* weights, const void* const* weights_t,
-                                      const int* widths, int n_layers, long long m, void* post,
-                                      float* gscr, float* partial, int splits, void* stream) {
-  if (m < 1 || splits < 1 || !wide_widths_ok(widths, n_layers)) return -1;
+                                      const void* const* weights, const int* widths,
+                                      int n_layers, long long m, void* const* planes,
+                                      float* prep, long long prep_floats, float* partial,
+                                      int splits, long long per_split, int slices, int ctas,
+                                      void* stream) {
   const int n = n_layers;
+  if (m < 1 || splits < 1 || per_split < 1 || ctas < 1 || slices < 1 ||
+      !wide_widths_ok(widths, n) || (long long)splits * per_split * kBlk < m)
+    return -1;
+  for (int i = 0; i < n; ++i)
+    if ((widths[i] + kDwSlice - 1) / kDwSlice > slices) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* posts[kMaxLayers];  // post_i, post_0 = x
-  float* gs[kMaxLayers];          // g_i below the top
-  posts[0] = x;
-  float* pp = static_cast<float*>(post);
-  float* gp = gscr;
-  for (int i = 1; i < n; ++i) {
-    posts[i] = pp;
-    pp += size_t(m) * widths[i];
-    gs[i - 1] = gp;
-    gp += size_t(m) * widths[i];
-  }
+  float* const* post = reinterpret_cast<float* const*>(planes);
+  float* const* gp = post + n;
+  uint32_t* const* bits = reinterpret_cast<uint32_t* const*>(planes + 2 * n);
   int err;
-  if (n > 1) {  // post_1 .. post_{n-1}: the forward's hidden layers again
-    WideChain c = {};
-    c.steps = n - 1;
+  {  // post_0 = x and post_1 .. post_{n-1}: the forward's hidden layers again
+    FmaTranspose t = {};
+    FmaChain c = {};
+    long long off = 0;
     for (int l = 0; l + 1 < n; ++l) {
-      c.w[l] = weights[l];
-      c.k[l] = widths[l];
-      c.n[l] = widths[l + 1];
-      c.relu |= 1u << l;
-      c.dst[l] = const_cast<void*>(posts[l + 1]);
+      t.w[l] = static_cast<const float*>(weights[l]);
+      t.din[l] = widths[l];
+      t.dout[l] = widths[l + 1];
+      t.off[l] = off;
+      c.st[l] = FmaStep{prep + off, widths[l], widths[l + 1], bits[l + 1], post[l + 1]};
+      off += (long long)widths[l] * widths[l + 1];
     }
-    if ((err = launch_chain_f32(x, c, m, s)) != 0) return err;
+    if (!prep || off > prep_floats) return -1;
+    if (n > 1) {
+      fused_mlp_wide_transpose_kernel<<<dim3(64, n - 1), 256, 0, s>>>(t, prep);
+      if ((err = int(cudaGetLastError())) != 0) return err;
+    }
+    c.in = static_cast<const float*>(x);
+    c.in_copy = post[0];
+    c.m = m;
+    c.k0 = widths[0];
+    c.steps = n - 1;
+    fused_mlp_wide_fma_kernel<0><<<kFmaCtasPerSm * ctas, kFmaThreads, kFmaSmem, s>>>(c);
+    if ((err = int(cudaGetLastError())) != 0) return err;
   }
-  const int steps = dx ? n : n - 1;  // the last step makes dx alone
-  if (steps > 0) {  // from the top: g_{i-1} = g_i @ W_i^T masked by post_i > 0
-    WideChain c = {};
-    c.steps = steps;
-    for (int st = 0; st < steps; ++st) {
+  {  // from the top, g_{n-1} = g and g_{i-1} = g_i @ W_i^T masked by post_i > 0; then dx
+    FmaChain c = {};
+    c.in = static_cast<const float*>(g);
+    c.in_copy = gp[n - 1];
+    c.out = static_cast<float*>(dx);
+    c.m = m;
+    c.k0 = widths[n];
+    c.steps = dx ? n : n - 1;
+    for (int st = 0; st < c.steps; ++st) {
       const int i = n - 1 - st;
-      c.w[st] = weights_t[i];
-      c.k[st] = widths[i + 1];
-      c.n[st] = widths[i];
-      if (i > 0) {
-        c.mask[st] = posts[i];
-        c.gout[st] = gs[i - 1];
-      } else {
-        c.dst[st] = dx;
-      }
+      c.st[st] = FmaStep{static_cast<const float*>(weights[i]), widths[i + 1], widths[i],
+                         i > 0 ? bits[i] : nullptr, i > 0 ? gp[i - 1] : nullptr};
     }
-    if ((err = launch_chain_f32(g, c, m, s)) != 0) return err;
+    fused_mlp_wide_fma_kernel<1><<<kFmaCtasPerSm * ctas, kFmaThreads, kFmaSmem, s>>>(c);
+    if ((err = int(cudaGetLastError())) != 0) return err;
   }
-  WideDw d = {};
-  d.n_layers = n;
-  int off = 0, tiles = 0;
+  T32DwArgs d = {};
+  int off = 0;
   for (int i = 0; i < n; ++i) {
-    d.post[i] = posts[i];
-    d.g[i] = i + 1 < n ? static_cast<const void*>(gs[i]) : g;
-    d.dw_off[i] = off;
+    d.l[i] = T32DwLayer{post[i], gp[i], widths[i], widths[i + 1], off};
     off += widths[i] * widths[i + 1];
-    d.tile_off[i] = tiles;
-    tiles += ((widths[i] + kDwF32Tile - 1) / kDwF32Tile) *
-             ((widths[i + 1] + kDwF32Tile - 1) / kDwF32Tile);
   }
-  for (int i = 0; i <= n; ++i) d.width[i] = widths[i];
-  d.tile_off[n] = tiles;
+  d.partial = partial;
+  d.blocks = (m + kBlk - 1) / kBlk;
+  d.per_split = per_split;
   d.dw_floats = off;
-  d.rows_per_split = (m + splits - 1) / splits;
-  fused_mlp_wide_dw_f32_kernel<<<dim3(tiles, splits), 256, 0, s>>>(d, m, partial);
+  d.slices = slices;
+  fused_mlp_wide_dw_tf32_kernel<<<dim3(slices * n, splits), kWsThreads, kT32DwSmem, s>>>(d);
   if ((err = int(cudaGetLastError())) != 0) return err;
   const dim3 threads(kReduceCols, kReduceRows);
   fused_mlp_bwd_reduce_kernel<float><<<(off + kReduceCols - 1) / kReduceCols, threads, 0, s>>>(

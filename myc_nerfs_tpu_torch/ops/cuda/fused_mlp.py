@@ -21,10 +21,12 @@ results. Chains up to 64 wide (both NGP MLPs) take the narrow kernels
 (weights staged once per CTA); chains with a width above 64, up to 272
 (OriginNeRF's 64 -> 257 x 8 backbone with its biases folded in), take the
 wide kernels (``fused_mlp_wide``, ``fused_mlp_wide_backward``: weights
-streamed through shared memory, a backward through global scratch; in bf16
-on wgmma and TMA, with the launch shape and scratch of ``wide_plan``). At
-most 8 layers, in bf16 (tensor cores) or f32 (CUDA cores); anything wider
-raises.
+streamed through shared memory, a backward through global scratch, on wgmma
+with TMA and bulk copies, with the launch shape and scratch of
+``wide_plan``). At most 8 layers, in bf16 (tensor cores) or f32: the
+narrow kernels, and the wide backward's recompute and dgrad, on the CUDA
+cores; the wide forward and dW as 3xTF32 on the tensor cores
+(``split_tf32``). Anything wider raises.
 The plain versions take any widths; ``fused_mlp_plain`` runs them on any
 device (the kernels' yardstick in a model's gradient). ``mlp_work`` gives a
 call's flops, bytes and its H100 bound from the shapes; ``exact_inputs``
@@ -48,16 +50,17 @@ MAX_LAYERS = 8
 MAX_WIDTH = 64         # the narrow kernels
 WIDE_MAX_WIDTH = 272   # the wide kernels
 WIDTH_STEP = 16        # the kernels' width granularity; the wrapper pads to it
-WIDE_SPLIT_ROWS = 4096  # f32: rows of one split of the wide backward's dW product
-WIDE_MAX_SPLITS = 32
-# The bf16 wide kernels (csrc/fused_mlp.cu, which alone lays out their
-# shared memory): a CTA takes 128-row tiles (two warpgroups of one 64-row
-# block each); the dW kernel's CTA takes 128 din rows.
+# The wide kernels (csrc/fused_mlp.cu, which alone lays out their shared
+# memory): a CTA takes 128-row tiles (two warpgroups of one 64-row block
+# each); the dW kernel's CTA takes 128 din rows.
 WIDE_TILE_ROWS = 128
 WIDE_BLOCK_ROWS = 64
 WIDE_DW_SLICE = 128
 WIDE_THREADS_PER_GROUP = 128  # a warpgroup
 WIDE_BIT_WORDS = 5  # words of ReLU-mask bits a thread keeps per 64-row block (272 / 8 x 4 bits)
+WIDE_TF32_PAD = (64, 256, 272)  # f32: the wgmma N a step's B is padded to (n <= 64, <= 256, above)
+WIDE_F32_BIT_WORDS = 3  # f32: words of ReLU-mask bits a thread keeps per 64-row block (4 x 17 bits)
+WIDE_F32_THREADS = 256  # f32: threads of the CUDA-core chain kernels
 WIDE_DW_WAVES = 4  # waves of dW CTAs: more, shorter CTAs balance the slices' unequal work
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,7 +115,10 @@ def mlp_work(widths: Sequence[int], rows: int, dtype: torch.dtype,
     """The work of fused_mlp (or, with ``backward``, of fused_mlp_backward)
     on ``rows`` rows, from the shapes alone: the function's flops, the
     bytes it must move (x, y or g, dx and the weights and dW, each read or
-    written once) and its H100 bound (utils.timing.roofline)."""
+    written once) and its H100 bound (utils.timing.roofline). In f32 the
+    least time for f32-accurate products is three TF32 passes on the tensor
+    cores (3 x flops at 495 TFLOP/s); ``bound_ms_fma`` and ``bound_by_fma``
+    keep the bound of the CUDA cores' f32 FMAs (67 TFLOP/s)."""
     size = torch.empty((), dtype=dtype).element_size()
     macs = [a * b for a, b in zip(widths[:-1], widths[1:])]
     if backward:
@@ -122,29 +128,44 @@ def mlp_work(widths: Sequence[int], rows: int, dtype: torch.dtype,
     else:
         flops = 2 * rows * sum(macs)
         nbytes = (rows * (widths[0] + widths[-1]) + sum(macs)) * size
-    return roofline(flops, nbytes, dtype)
+    if dtype != torch.float32:
+        return roofline(flops, nbytes, dtype)
+    fma = roofline(flops, nbytes, torch.float32)
+    work = roofline(3 * flops, nbytes, "tf32")
+    return {**work, "flops": flops, "bound_ms_fma": fma["bound_ms"],
+            "bound_by_fma": fma["bound_by"]}
 
 
 @dataclass(frozen=True)
 class WidePlan:
     """The launch shape and scratch of the wide kernels for one call
-    (wide_plan). Scratch sizes count elements of the dtype (bf16: the
-    blocked planes; f32: post and g) and floats of the partial dW."""
+    (wide_plan). Scratch sizes count elements of the dtype (the blocked
+    planes), floats of the partial dW and, in f32, floats of the weights
+    split for the tensor cores (prep)."""
     widths: Tuple[int, ...]
     rows: int
     dtype: torch.dtype
-    chain_ctas: int          # CTAs of a chain kernel (bf16: a persistent grid)
-    dw_slices: int           # dW CTAs of one layer along din (bf16: 128 din rows each)
+    chain_ctas: int          # CTAs of a chain kernel (a persistent grid)
+    dw_slices: int           # dW CTAs of one layer along din (128 din rows each)
     dw_splits: int           # row splits of the dW product
-    dw_split_rows: int       # rows of one split (a multiple of 64 in bf16)
-    planes: Tuple[Tuple[str, int, int], ...]  # bf16: (name, offset, width) of each plane
-    plane_rows: int          # rows of each plane (bf16: whole 128-row tiles)
+    dw_split_rows: int       # rows of one split (a multiple of 64)
+    planes: Tuple[Tuple[str, int, int], ...]  # (name, offset, width) of each plane
+    plane_rows: int          # rows of each plane (whole 128-row tiles)
     scratch_elems: int
     partial_floats: int
+    prep_floats: int = 0     # f32: each layer's W^T and W as big and small TF32 planes
 
     @property
     def scratch_bytes(self) -> int:
         return self.scratch_elems * torch.empty((), dtype=self.dtype).element_size()
+
+
+def tf32_prep_floats(n: int, k: int) -> int:
+    """Floats of one layer's weights as an f32 chain step of ``n`` columns
+    and depth ``k`` reads them: k/8 chunks of a big and a small plane of 8 x
+    n columns, n padded to the step's wgmma (WIDE_TF32_PAD)."""
+    pad = next(p for p in WIDE_TF32_PAD if n <= p)
+    return k // 8 * 16 * pad
 
 
 def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
@@ -152,23 +173,18 @@ def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
     """The wide kernels' launch shape for a chain of ``widths`` (multiples
     of 16 up to 272) over ``rows`` rows on a card with ``sms`` SMs.
 
-    bf16: the chain kernels run min(sms, tiles) CTAs over 128-row tiles.
-    The backward's scratch is a blocked plane ([64-row block][8-row group]
-    [width/8][8][8], rows padded to whole tiles) per post_i (post_0 = x), per
-    g_hi_i and per g_lo_i below the top; the dW kernel's CTAs each take 128
-    din rows (a slice) of one layer, and the rows are split into
-    WIDE_DW_WAVES waves of ``sms`` CTAs.
-    f32: one CTA per 64 rows, post and g of the hidden layers in f32, row
-    splits of WIDE_SPLIT_ROWS."""
+    The chain kernels run min(sms, tiles) CTAs over 128-row tiles (f32's
+    CUDA-core backward chains two per SM). The backward's scratch is a
+    blocked plane (64-row blocks, rows padded to whole tiles) per post_i
+    (post_0 = x) and per gradient: in bf16 g_hi_i, and g_lo_i below the
+    top; in f32 g_i. Then the bit planes of the ReLU masks of post_1...
+    The dW kernel's CTAs each take 128 din rows (a slice) of one layer, and
+    the rows are split into WIDE_DW_WAVES waves of ``sms`` CTAs. f32 also
+    needs ``prep_floats`` floats: the forward's weights split for the
+    tensor cores, or the backward's W^T copies (fewer)."""
     widths = tuple(int(w) for w in widths)
     n = len(widths) - 1
     dw_floats = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    if dtype == torch.float32:
-        splits = max(1, min(WIDE_MAX_SPLITS, -(-rows // WIDE_SPLIT_ROWS)))
-        hidden = rows * sum(widths[1:-1])
-        return WidePlan(widths, rows, dtype, max(1, -(-rows // 64)), 0, splits,
-                        -(-rows // splits) if rows else 0, (), rows, 2 * hidden,
-                        splits * dw_floats)
     tiles = -(-rows // WIDE_TILE_ROWS)
     plane_rows = tiles * WIDE_TILE_ROWS
     slices = max(-(-d // WIDE_DW_SLICE) for d in widths[:-1])
@@ -176,26 +192,54 @@ def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
     splits = max(1, min(blocks, WIDE_DW_WAVES * sms // (slices * n)))
     per = -(-blocks // splits) if blocks else 1
     splits = max(1, -(-blocks // per))
+    f32 = dtype == torch.float32
+    grads = (("g", widths[1:]),) if f32 else (("hi", widths[1:]), ("lo", widths[1:-1]))
     planes, off = [], 0
-    for name, ws in (("post", widths[:-1]), ("hi", widths[1:]), ("lo", widths[1:-1])):
+    for name, ws in (("post", widths[:-1]),) + grads:
         for i, w in enumerate(ws):
             planes.append((f"{name}{i}", off, w))
             off += plane_rows * w
-    for i in range(1, n):  # the ReLU masks of post_1.., as bits (2 bf16 elements a word)
-        planes.append((f"bits{i}", off, WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2 // WIDE_BLOCK_ROWS))
-        off += plane_rows * WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2 // WIDE_BLOCK_ROWS
+    # the ReLU masks of post_1.., as bits (4 bytes a word: 1 f32, 2 bf16 elements)
+    bit_elems = (WIDE_F32_BIT_WORDS * WIDE_F32_THREADS if f32
+                 else WIDE_BIT_WORDS * WIDE_THREADS_PER_GROUP * 2) // WIDE_BLOCK_ROWS
+    for i in range(1, n):
+        planes.append((f"bits{i}", off, bit_elems))
+        off += plane_rows * bit_elems
+    # the forward's split weights (the backward's W^T fit in the same room)
+    prep = sum(tf32_prep_floats(b, a) for a, b in zip(widths[:-1], widths[1:])) if f32 else 0
     return WidePlan(widths, rows, dtype, max(1, min(sms, tiles)), slices, splits,
-                    per * WIDE_BLOCK_ROWS, tuple(planes), plane_rows, off, splits * dw_floats)
+                    per * WIDE_BLOCK_ROWS, tuple(planes), plane_rows, off, splits * dw_floats,
+                    prep)
 
 
 def wide_planes(plan: WidePlan, scratch: torch.Tensor) -> List[Optional[torch.Tensor]]:
-    """The bf16 scratch's planes as views of ``scratch`` (plan.scratch_elems
-    elements), in the order fused_mlp_wide_bwd_bf16 takes them: post_0..,
-    g_hi_0.., g_lo_0.. (None for the top layer's), bits_0.. (None for x's)."""
+    """The scratch's planes as views of ``scratch`` (plan.scratch_elems
+    elements), in the order the backward's C entry takes them: bf16
+    (fused_mlp_wide_bwd_bf16) post_0.., g_hi_0.., g_lo_0.. (None for the top
+    layer's), bits_0.. (None for x's); f32 (fused_mlp_wide_bwd_f32)
+    post_0.., g_0.., bits_0.. (None for x's)."""
     views = {name: scratch[off:off + plan.plane_rows * w]
              for name, off, w in plan.planes}
     n = len(plan.widths) - 1
-    return [views.get(f"{name}{i}") for name in ("post", "hi", "lo", "bits") for i in range(n)]
+    names = ("post", "g", "bits") if plan.dtype == torch.float32 else ("post", "hi", "lo", "bits")
+    return [views.get(f"{name}{i}") for name in names for i in range(n)]
+
+
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of an f32 tensor, as the wide f32 kernels split every
+    operand for the TF32 tensor cores: big is v with its low 13 mantissa
+    bits cleared (a NaN keeps a payload bit, so it stays a NaN; big never
+    overflows), small the TF32 rounding (to nearest, ties away from zero)
+    of v - big, which f32 holds exactly; where v is not finite big carries
+    it alone and small is 0."""
+    u = v.contiguous().view(torch.int32)
+    finite = torch.isfinite(v)
+    nan_bit = torch.where(torch.isnan(v), 0x00400000, 0).to(torch.int32)
+    big = ((u & -0x2000) | nan_bit).view(torch.float32)
+    rest = torch.where(finite, v - big, torch.zeros_like(v)).view(torch.int32)
+    # ties away from zero: add half a TF32 ulp to the magnitude, then cut
+    small = ((rest + 0x1000) & -0x2000).view(torch.float32)
+    return big, small
 
 
 def split_bf16(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -226,9 +270,10 @@ def _library() -> ctypes.CDLL:
     lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
                                   i32, i64, i32, ptr]
     lib.fused_mlp_wide_init.argtypes = []
-    lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
-    lib.fused_mlp_wide_bwd_f32.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptrs, ints, i32,
-                                           i64, ptr, ptr, ptr, i32, ptr]
+    lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr, i64,
+                                       ptr]
+    lib.fused_mlp_wide_bwd_f32.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64, ptrs,
+                                           ptr, i64, ptr, i32, i64, i32, i32, ptr]
     lib.fused_mlp_wide_bwd_bf16.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64,
                                             ptrs, ptr, i32, i64, i32, i32, ptr]
     for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd,
@@ -453,12 +498,14 @@ def fused_mlp_wide(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
         return y
     lib = _wide_library(x.device.index)
     plan = wide_plan(widths, x.shape[0], x.dtype, _sms(x.device.index))
+    prep = torch.empty(plan.prep_floats, dtype=torch.float32, device=x.device)
     w_ptrs, c_widths = _c_args(weights, widths)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.fused_mlp_wide_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
                                      len(weights), x.shape[0], _DTYPE_CODE[x.dtype],
-                                     plan.chain_ctas, stream)
+                                     plan.chain_ctas, prep.data_ptr() or None,
+                                     plan.prep_floats, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp wide kernel launch failed (error {err}) "
                            f"for widths {widths}")
@@ -471,8 +518,9 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                             ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     """The wide backward kernels on CUDA tensors as fused_mlp_wide takes
     them, g [M, D_out] in x's dtype. Scratch (wide_plan: the recomputed
-    post-activations, each layer's gradient and the row splits' partial dW)
-    is allocated here and released with the call."""
+    post-activations, each layer's gradient, the row splits' partial dW
+    and, in f32, the split weights) is allocated here and released with the
+    call."""
     widths = [x.shape[1]] + [w.shape[1] for w in weights]
     m, dtype = x.shape[0], x.dtype
     x = _aligned(x)
@@ -491,25 +539,23 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
         w_ptrs, c_widths = _c_args(weights, widths)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         dx_ptr = dx.data_ptr() if need_dx else None
+        planes = [p.data_ptr() if p is not None else None for p in wide_planes(plan, scratch)]
+        c_planes = (ctypes.c_void_p * len(planes))(*planes)
         with torch.cuda.device(x.device):
             if dtype == torch.bfloat16:
-                planes = [p.data_ptr() if p is not None else None
-                          for p in wide_planes(plan, scratch)]
                 err = lib.fused_mlp_wide_bwd_bf16(
                     x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
-                    len(weights), m, (ctypes.c_void_p * len(planes))(*planes),
-                    partial.data_ptr(), plan.dw_splits,
+                    len(weights), m, c_planes, partial.data_ptr(), plan.dw_splits,
                     plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
                     plan.chain_ctas, stream)
             else:
-                weights_t = [w.t().contiguous() for w in weights]
-                wt_ptrs, _ = _c_args(weights_t, widths)
-                hidden = m * sum(widths[1:-1])
+                prep = torch.empty(plan.prep_floats, dtype=torch.float32, device=x.device)
                 err = lib.fused_mlp_wide_bwd_f32(
-                    x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, wt_ptrs,
-                    c_widths, len(weights), m, scratch.data_ptr() or None,
-                    (scratch.data_ptr() + 4 * hidden) or None, partial.data_ptr(),
-                    plan.dw_splits, stream)
+                    x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
+                    len(weights), m, c_planes, prep.data_ptr(), plan.prep_floats,
+                    partial.data_ptr(), plan.dw_splits,
+                    plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
+                    plan.chain_ctas, stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp wide backward launch failed (error {err}) "
                                f"for widths {widths}")

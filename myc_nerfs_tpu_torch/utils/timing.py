@@ -26,9 +26,9 @@ def median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> floa
 
 # Published peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data
 # sheet, dense): HBM bytes/s, and FLOP/s by the type the arithmetic runs in
-# (bf16 on the tensor cores, f32 outside them).
+# (bf16 and "tf32" on the tensor cores, f32 outside them).
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 
 def roofline(flops: float, nbytes: float, dtype=torch.float32) -> dict:

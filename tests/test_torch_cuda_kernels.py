@@ -173,6 +173,44 @@ def test_fused_mlp_wide_backward_is_deterministic_and_skips_dx(cuda_device):
     assert all(map(torch.equal, dws, dws2)) and all(map(torch.equal, dws, dws3))
 
 
+def test_fused_mlp_wide_f32_backward_is_deterministic_and_skips_dx(cuda_device):
+    """The f32 wide backward (CUDA-core chains, 3xTF32 dW, fixed-order sum
+    of the row splits) gives the same bits twice, and the same dW without
+    dx."""
+    x, ws = _net((64,) + (257,) * 8, 20000, torch.float32, cuda_device)
+    g = _grad_out(20000, 257, torch.float32, cuda_device)
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx2, dws2 = fm.fused_mlp_backward(x, ws, g)
+    none, dws3 = fm.fused_mlp_backward(x, ws, g, need_dx=False)
+    assert none is None and torch.equal(dx, dx2)
+    assert all(map(torch.equal, dws, dws2)) and all(map(torch.equal, dws, dws3))
+
+
+@pytest.mark.parametrize("widths", WIDE)
+def test_fused_mlp_wide_f32_keeps_non_finite(cuda_device, widths):
+    """On the f32 wide path a quiet NaN, a NaN whose payload lies in the low
+    13 bits alone (0x7f800001: a TF32 read that cleared them would make it
+    inf) and an inf, in x and in g: y has the plain forward's NaN and inf
+    elements, dx and every dW its non-finite elements (an inf may read NaN
+    there: 3xTF32 dW is three products)."""
+    rows = 1000
+    x, ws = _net(widths, rows, torch.float32, cuda_device)
+    g = _grad_out(rows, widths[-1], torch.float32, cuda_device)
+    for t in (x, g):
+        t[17, 1] = float("nan")
+        t.view(torch.int32)[500, 2] = 0x7F800001
+        t[999, 0] = float("inf")
+    with torch.no_grad():
+        y, ref = fm.fused_mlp(x, ws), fm.fused_mlp_reference(x, ws)
+    assert torch.equal(torch.isnan(y), torch.isnan(ref))
+    assert torch.equal(torch.isinf(y), torch.isinf(ref))
+    assert (~torch.isfinite(y[[17, 500, 999]])).any(1).all()  # every planted row
+    dx, dws = fm.fused_mlp_backward(x, ws, g)
+    dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
+    for a, b in zip([dx] + dws, [dx_ref] + dws_ref):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("widths", WIDE)
 def test_fused_mlp_wide_keeps_nan(cuda_device, widths, dtype):

@@ -276,20 +276,27 @@ def test_exact_inputs_sum_alike_in_any_order_and_show_bf16_rounding():
 
 # (widths, backward, dtype) -> (flops, bytes, bound in us, bound_by) at 262144
 # rows: the H100 bounds of the NGP MLPs (bytes: x and y, or x, g and dx, plus
-# the weights; flops: the function's, against 989 TFLOP/s bf16, 67 f32)
+# the weights; flops: the function's, against 989 TFLOP/s bf16; f32-accurate
+# products as three TF32 passes, 3 x flops at 495 TFLOP/s), and in f32 the
+# CUDA cores' FMA bound (67 TFLOP/s) as bound_ms_fma
 @pytest.mark.parametrize("widths,backward,dtype,expect", [
     ((32, 64, 16), False, torch.bfloat16, (1.611e9, 25.17e6, 7.51, "bytes")),
     ((32, 64, 64, 16), False, torch.bfloat16, (3.758e9, 25.18e6, 7.52, "bytes")),
     ((32, 64, 64, 16), True, torch.bfloat16, (10.74e9, 41.97e6, 12.53, "bytes")),
-    ((32, 64, 64, 16), True, torch.float32, (10.74e9, 83.94e6, 160.3, "operations")),
-    ((32, 64, 16), False, torch.float32, (1.611e9, 50.34e6, 24.04, "operations")),
+    ((32, 64, 64, 16), True, torch.float32, (10.74e9, 83.94e6, 65.08, "operations",
+                                             160.3, "operations")),
+    ((32, 64, 16), False, torch.float32, (1.611e9, 50.34e6, 15.03, "bytes",
+                                          24.04, "operations")),
 ])
 def test_mlp_work_bounds(widths, backward, dtype, expect):
     work = fm.mlp_work(widths, 262144, dtype, backward)
-    flops, nbytes, bound_us, by = expect
+    flops, nbytes, bound_us, by = expect[:4]
     np.testing.assert_allclose([work["flops"], work["bytes"], 1e3 * work["bound_ms"]],
                                [flops, nbytes, bound_us], rtol=1e-3)
     assert work["bound_by"] == by
+    if dtype == torch.float32:
+        np.testing.assert_allclose(1e3 * work["bound_ms_fma"], expect[4], rtol=1e-3)
+        assert work["bound_by_fma"] == expect[5]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

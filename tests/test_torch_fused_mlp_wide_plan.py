@@ -81,12 +81,18 @@ def test_row_splits_cover_every_row_once(widths, rows, sms):
     assert 1 <= plan.chain_ctas <= min(sms, -(-rows // fm.WIDE_TILE_ROWS))
 
 
-def test_f32_plan_keeps_the_cuda_core_kernels_shape():
+def test_f32_plan_takes_the_tf32_kernels_shape():
+    """OriginNeRF's chain at its train step in f32: the bf16 plan's launch
+    shape, post and g planes in f32 (no lo planes: the dW kernel splits g
+    itself), bit planes of 12 words a row, and 4.3 MB of the forward's
+    weights split for the tensor cores."""
     plan = _plan((64,) + (257,) * 8, 131072, torch.float32)
-    hidden = 131072 * 272 * 7
-    assert plan.scratch_elems == 2 * hidden and plan.planes == ()
-    assert plan.dw_splits == fm.WIDE_MAX_SPLITS
-    assert plan.chain_ctas == 131072 // 64
+    assert plan.chain_ctas == 132 and plan.dw_slices == 3 and plan.dw_splits == 22
+    assert [p[0] for p in plan.planes] == ([f"post{i}" for i in range(8)]
+                                           + [f"g{i}" for i in range(8)]
+                                           + [f"bits{i}" for i in range(1, 8)])
+    assert plan.scratch_elems == 131072 * (64 + 7 * 272 + 8 * 272 + 7 * 12)
+    assert plan.prep_floats == 64 // 8 * 16 * 272 + 7 * 34 * 16 * 272
 
 
 @pytest.mark.parametrize("value", [float("inf"), float("-inf"), float("nan"), 3.4e38, -3.4e38])
