@@ -949,9 +949,10 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 //     rows, setmaxnreg, full/empty mbarriers), activations in the
 //     feature-major cells of fm_off, x in by plain loads, y out from
 //     registers;
-//   - backward: the recompute and the dgrad on the CUDA cores in the plain
-//     version's summation order (fused_mlp_wide_fma_kernel: 3xTF32 would
-//     move ReLU masks and dx beyond the f32 limits, see there), each writing its
+//   - backward: the recompute and the dgrad on the CUDA cores, summed in
+//     the order the plain version's GEMM took at the sizes measured
+//     (fused_mlp_wide_fma_kernel: 3xTF32 would move ReLU masks and dx
+//     beyond the f32 limit on dx, see there), each writing its
 //     blocks to planes in the feature-major layout that dW reads K-major
 //     without a transpose, the recompute a bit plane of post_i > 0 that the
 //     dgrad reads instead of post_i;
@@ -961,8 +962,14 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial, int n_parts, int 
 //     128-din slice of post, all of g), its other three warps split each
 //     slot's g into big (in place) and small planes. The scratch is f32
 //     written once and read once (about 4 GB at 131072 rows; split planes
-//     from the dgrad would have made it 6 GB). Row splits and the
-//     fixed-order sum as in bf16.
+//     from the dgrad would have made it 6 GB). The tensor cores round the
+//     accumulator toward zero, an error that grew with the rows one
+//     accumulator summed (5.2e-5 of scale at 6016 rows on the H100); each 256
+//     rows' sum is added to the split's partial by f32 reductions in L2
+//     (kT32DwFlush, t32_dw_flush: the consumer does not wait; loading the
+//     partial back to add in registers cost far more), so the error no longer
+//     grows with a split's rows. Row splits and the fixed-order sum as in
+//     bf16.
 
 constexpr int kWideMax = 272;                 // widest layer the wide kernels take
 
@@ -1444,6 +1451,12 @@ constexpr uint32_t kT32DwPostBytes = (kT32DwRows / 4) * (kDwSlice / 8) * kCell;
 constexpr uint32_t kT32DwPlaneBytes = kT32DwRows * kWideMax * 4;
 constexpr uint32_t kT32DwSlotBytes = kT32DwPostBytes + 2 * kT32DwPlaneBytes;  // post, g big, g small
 constexpr int kT32DwStages = 5;
+// dW: slots (256 rows) one accumulator sums before it is added to the
+// split's partial. The tensor cores round the accumulator toward zero at
+// every k8 step, an error that grows with the rows summed into it; f32
+// adds (to nearest) of the 256-row sums keep it from growing with the rows
+// a split holds.
+constexpr int kT32DwFlush = 16;
 constexpr int kSplitThreads = kWgThreads - 32;             // dW: the producer warpgroup's other warps
 
 constexpr size_t kT32ChainSmem = 1024 + 2 * size_t(kT32ActBytes) +
@@ -1761,12 +1774,12 @@ struct T32DwArgs {
   int slices;           // CTAs of one layer along din (blockIdx.x = layer x slices + slice)
 };
 
-// acc += post^T g over one slot's 16 rows (two k8 steps): post (A, the
-// warpgroup's 64 din rows, from registers) and g's big and small planes (B,
-// K-major cells along the rows)
+// acc (+)= post^T g over one slot's 16 rows (two k8 steps; scale 0: acc =):
+// post (A, the warpgroup's 64 din rows, from registers) and g's big and
+// small planes (B, K-major cells along the rows)
 template <int NI>
 __device__ __forceinline__ void t32_dw_slot(Acc& acc, const float* post, uint32_t g, int a_off,
-                                            int gout) {
+                                            int gout, int scale) {
   constexpr int kPostGroup = (kDwSlice / 8) * 32;  // floats between 4-row groups of post
   constexpr int kSteps = kT32DwRows / 8;
   uint32_t a[kSteps][12];
@@ -1781,15 +1794,39 @@ __device__ __forceinline__ void t32_dw_slot(Acc& acc, const float* post, uint32_
 #pragma unroll
   for (int ks = 0; ks < kSteps; ++ks) {
     const uint32_t b = g + 2 * ks * gout * kCell;
-    t32_mma3<NI>(acc, a[ks], b, b + kT32DwPlaneBytes, gout * kCell, 1);
+    t32_mma3<NI>(acc, a[ks], b, b + kT32DwPlaneBytes, gout * kCell, ks == 0 ? scale : 1);
   }
   hp::wgmma_commit();
   hp::wgmma_wait<0>();
   keep_fragments(a);
 }
 
+// out += acc: a warpgroup's 64 din rows (from m0) of its split's partial
+// dW, the layer's din x dout at out, by reductions in L2 (red: the thread
+// does not wait for them). Each element has this one thread adding to it,
+// in program order, so its sum and its bits do not change from run to run.
+__device__ __forceinline__ void t32_dw_flush(const Acc& acc, float* out, int m0, int din,
+                                             int dout) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+  for (int gi = 0; gi < kWideMax / 8; ++gi)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = m0 + r0 + 8 * e, col = 8 * gi + cq;
+      if (d < din && col < dout) {
+        const float2 v = acc_pair(acc, gi, e);
+        asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(out + d * dout + col),
+                     "f"(v.x), "f"(v.y)
+                     : "memory");
+      }
+    }
+}
+
 // dW_i rows [128 slice, 128 slice + 128) x all columns of one layer, over
-// the row split blockIdx.y, 16 rows per ring slot. The producer warpgroup's
+// the row split blockIdx.y, 16 rows per ring slot, in sums of kT32DwFlush
+// slots added in order to the split's partial (zeroed before the kernel).
+// The producer warpgroup's
 // first thread issues the copies and its other warps split each slot's g
 // into its big (in place) and small planes for the consumers.
 __global__ void __launch_bounds__(kWsThreads, 1)
@@ -1888,6 +1925,7 @@ fused_mlp_wide_dw_tf32_kernel(const __grid_constant__ T32DwArgs a) {
     auto release = [&](int s) {
       if (signal) hp::mbar_arrive(empty0 + 8u * s);
     };
+    float* out = a.partial + blockIdx.y * (long long)a.dw_floats + L.dw_off;
     if (active) {
       int slot = 0;
       uint32_t phase = 0;
@@ -1895,14 +1933,21 @@ fused_mlp_wide_dw_tf32_kernel(const __grid_constant__ T32DwArgs a) {
       for (long long h = h0; h < h1; ++h) {
         hp::mbar_wait(full0 + 8u * slot, phase);
         hp::mbar_wait(split0 + 8u * slot, phase);
+        const long long j = h - h0;  // the slot's place in the split
         if (computes) {
           const float* post = reinterpret_cast<const float*>(base_p + slot * kT32DwSlotBytes);
           const uint32_t g = base + slot * kT32DwSlotBytes + kT32DwPostBytes;
-          if (kind == 2) t32_dw_slot<2>(acc, post, g, a_off, gout);
-          else if (kind == 1) t32_dw_slot<1>(acc, post, g, a_off, gout);
-          else t32_dw_slot<0>(acc, post, g, a_off, gout);
+          const int scale = j % kT32DwFlush != 0;  // a sum's first slot starts it
+          if (kind == 2) t32_dw_slot<2>(acc, post, g, a_off, gout, scale);
+          else if (kind == 1) t32_dw_slot<1>(acc, post, g, a_off, gout, scale);
+          else t32_dw_slot<0>(acc, post, g, a_off, gout, scale);
         }
         release(slot);
+        if (computes && (j % kT32DwFlush == kT32DwFlush - 1 || h + 1 == h1)) {
+          acc_fence(acc);
+          t32_dw_flush(acc, out, m0, L.din, L.dout);
+          acc_fence(acc);
+        }
         if (++slot == kT32DwStages) {
           slot = 0;
           phase ^= 1;
@@ -1910,36 +1955,25 @@ fused_mlp_wide_dw_tf32_kernel(const __grid_constant__ T32DwArgs a) {
       }
       acc_fence(acc);
     }
-    if (computes) {  // the split's partial of the warpgroup's 64 rows
-      float* out = a.partial + blockIdx.y * (long long)a.dw_floats + L.dw_off;
-      const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
-#pragma unroll
-      for (int gi = 0; gi < kWideMax / 8; ++gi)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = m0 + r0 + 8 * e, col = 8 * gi + cq;
-          if (d < L.din && col < L.dout)
-            *reinterpret_cast<float2*>(out + d * L.dout + col) = acc_pair(acc, gi, e);
-        }
-    }
   }
 }
 
 // The f32 backward's chains on the CUDA cores: the recompute of the
-// post-activations (DGRAD 0) and the dgrad (DGRAD 1). The recompute's ReLU
-// masks must be the plain version's bit for bit (a mask that differs moves
-// a whole term of the gradient), and that takes the plain version's sums:
-// each element one fmaf per k in order from k = 0, as the f32 GEMM of the
-// plain version sums (the CUDA-core kernels this one replaces matched it
-// bit for bit on the H100). 3xTF32 cannot: its forward reads ~3e-6 of the
-// output's scale off the plain version on the H100 (chip_smoke.py's
-// kernel_wide line), and a recompute that far off flips the mask of every
-// pre-activation within it of zero; one flipped mask fails the f32 limit
-// on dx (1e-5 of scale). Two CTAs of 256 threads per SM walk 64-row blocks
-// (a persistent grid); the block stays in shared memory in fm_off's layout
-// (a thread's 4 rows at one feature are one float4), and each layer's
-// result replaces it once every thread is past the layer's last read. A
-// thread computes 4 rows x 17 columns (cg + 16 j; 4 columns for outputs
+// post-activations (DGRAD 0) and the dgrad (DGRAD 1). chip_smoke.py holds
+// dx to a max-abs limit (1e-5 of scale), which one ReLU mask that differs
+// from the plain version's fails (it moves a whole term of the gradient).
+// So each element sums one fmaf per k in order from k = 0: the order in
+// which the H100's f32 GEMM summed OriginNeRF's chain at 131072 and 16384
+// rows, where dx read 0 error. That order is the library's choice per
+// shape, not a property of these chains: at 1000 rows dx read 3.4e-7 of
+// scale (within the limit). 3xTF32 would be further off: its forward
+// reads ~3e-6 of the output's scale off the plain version on the H100
+// (chip_smoke.py's kernel_wide line), and a recompute that far off flips
+// the mask of every pre-activation within it of zero. Two CTAs of 256
+// threads per SM walk 64-row blocks (a persistent grid); the block stays
+// in shared memory in fm_off's layout (a thread's 4 rows at one feature
+// are one float4), and each layer's result replaces it once every thread
+// is past the layer's last read. A thread computes 4 rows x 17 columns (cg + 16 j; 4 columns for outputs
 // up to 64 wide): per 4 k, four float4 of activations and a float4 of B^T
 // per column (staged [n][16 k] by cp.async into a double buffer) feed the
 // FMAs. The recompute writes each block to its post plane and each
@@ -2117,6 +2151,13 @@ bool wide_widths_ok(const int* widths, int n_layers) {
   for (int i = 0; i <= n_layers; ++i)
     if (widths[i] <= 0 || widths[i] % 16 != 0 || widths[i] > kWideMax) return false;
   return true;
+}
+
+// The dW kernel's `splits` row splits of `per_split` 64-row blocks cover m
+// rows, and none is empty
+bool splits_ok(long long m, int splits, long long per_split) {
+  const long long blocks = (m + kBlk - 1) / kBlk;
+  return (long long)splits * per_split >= blocks && (long long)(splits - 1) * per_split < blocks;
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
@@ -2464,17 +2505,20 @@ extern "C" int fused_mlp_wide_fwd(const void* x, void* y, const void* const* wei
 // of ceil(m / 128) * 128 rows in 64-row blocks (fm_off): post_0..post_{n-1}
 // (widths[i] wide), g of layers 0..n-1 (widths[i+1] wide; the top one a
 // copy of g), and the bit planes of post_1..post_{n-1} (fma_bit_words; the
-// first entry is unused). partial is [splits][sum_i widths[i]*widths[i+1]]
-// floats. Returns as fused_mlp_wide_fwd.
+// first entry is unused), each of bit_words words. partial is
+// [splits][sum_i widths[i]*widths[i+1]] floats; every split holds rows.
+// Returns as fused_mlp_wide_fwd.
 extern "C" int fused_mlp_wide_bwd_f32(const void* x, const void* g, void* dx, void* dw,
                                       const void* const* weights, const int* widths,
                                       int n_layers, long long m, void* const* planes,
-                                      float* prep, long long prep_floats, float* partial,
-                                      int splits, long long per_split, int slices, int ctas,
+                                      long long bit_words, float* prep,
+                                      long long prep_floats, float* partial, int splits,
+                                      long long per_split, int slices, int ctas,
                                       void* stream) {
   const int n = n_layers;
   if (m < 1 || splits < 1 || per_split < 1 || ctas < 1 || slices < 1 ||
-      !wide_widths_ok(widths, n) || (long long)splits * per_split * kBlk < m)
+      !wide_widths_ok(widths, n) || !splits_ok(m, splits, per_split) ||
+      bit_words < fma_bit_words(2 * ((m + kTile - 1) / kTile)))
     return -1;
   for (int i = 0; i < n; ++i)
     if ((widths[i] + kDwSlice - 1) / kDwSlice > slices) return -1;
@@ -2535,6 +2579,8 @@ extern "C" int fused_mlp_wide_bwd_f32(const void* x, const void* g, void* dx, vo
   d.per_split = per_split;
   d.dw_floats = off;
   d.slices = slices;
+  if ((err = int(cudaMemsetAsync(partial, 0, sizeof(float) * size_t(splits) * off, s))) != 0)
+    return err;
   fused_mlp_wide_dw_tf32_kernel<<<dim3(slices * n, splits), kWsThreads, kT32DwSmem, s>>>(d);
   if ((err = int(cudaGetLastError())) != 0) return err;
   const dim3 threads(kReduceCols, kReduceRows);
@@ -2552,16 +2598,19 @@ extern "C" int fused_mlp_wide_bwd_f32(const void* x, const void* g, void* dx, vo
 // wide), g_hi of layers 0..n-1, g_lo of layers 0..n-2 (widths[i+1] wide; the
 // last entry is unused), each [64-row block][8-row group][width/8][8][8], and
 // the bit planes of post_1..post_{n-1} (bit_plane_words; the first entry is
-// unused). partial is [splits][sum_i widths[i]*widths[i+1]] floats. Returns
-// as fused_mlp_wide_fwd.
+// unused), each of bit_words words. partial is [splits][sum_i
+// widths[i]*widths[i+1]] floats; every split holds rows. Returns as
+// fused_mlp_wide_fwd.
 extern "C" int fused_mlp_wide_bwd_bf16(const void* x, const void* g, void* dx, void* dw,
                                        const void* const* weights, const int* widths,
                                        int n_layers, long long m, void* const* planes,
-                                       float* partial, int splits, long long per_split,
-                                       int slices, int ctas, void* stream) {
+                                       long long bit_words, float* partial, int splits,
+                                       long long per_split, int slices, int ctas,
+                                       void* stream) {
   const int n = n_layers;
   if (m < 1 || splits < 1 || per_split < 1 || ctas < 1 || slices < 1 ||
-      !wide_widths_ok(widths, n) || (long long)splits * per_split * kBlk < m)
+      !wide_widths_ok(widths, n) || !splits_ok(m, splits, per_split) ||
+      bit_words < bit_plane_words(2 * ((m + kTile - 1) / kTile)))
     return -1;
   for (int i = 0; i < n; ++i)
     if ((widths[i] + kDwSlice - 1) / kDwSlice > slices) return -1;

@@ -26,7 +26,8 @@ with TMA and bulk copies, with the launch shape and scratch of
 ``wide_plan``). At most 8 layers, in bf16 (tensor cores) or f32: the
 narrow kernels, and the wide backward's recompute and dgrad, on the CUDA
 cores; the wide forward and dW as 3xTF32 on the tensor cores
-(``split_tf32``). Anything wider raises.
+(``split_tf32``; ``mm_3xtf32``, ``forward_3xtf32`` and ``backward_3xtf32``
+emulate their products, planted faults included). Anything wider raises.
 The plain versions take any widths; ``fused_mlp_plain`` runs them on any
 device (the kernels' yardstick in a model's gradient). ``mlp_work`` gives a
 call's flops, bytes and its H100 bound from the shapes; ``exact_inputs``
@@ -57,8 +58,9 @@ WIDE_TILE_ROWS = 128
 WIDE_BLOCK_ROWS = 64
 WIDE_DW_SLICE = 128
 WIDE_THREADS_PER_GROUP = 128  # a warpgroup
-WIDE_BIT_WORDS = 5  # words of ReLU-mask bits a thread keeps per 64-row block (272 / 8 x 4 bits)
 WIDE_TF32_PAD = (64, 256, 272)  # f32: the wgmma N a step's B is padded to (n <= 64, <= 256, above)
+# The bit planes' sizes (the C backward entries check the size they are given):
+WIDE_BIT_WORDS = 5  # words of ReLU-mask bits a thread keeps per 64-row block (272 / 8 x 4 bits)
 WIDE_F32_BIT_WORDS = 3  # f32: words of ReLU-mask bits a thread keeps per 64-row block (4 x 17 bits)
 WIDE_F32_THREADS = 256  # f32: threads of the CUDA-core chain kernels
 WIDE_DW_WAVES = 4  # waves of dW CTAs: more, shorter CTAs balance the slices' unequal work
@@ -153,6 +155,7 @@ class WidePlan:
     plane_rows: int          # rows of each plane (whole 128-row tiles)
     scratch_elems: int
     partial_floats: int
+    bit_words: int           # 4-byte words of each bit plane (the C entry checks them)
     prep_floats: int = 0     # f32: each layer's W^T and W as big and small TF32 planes
 
     @property
@@ -209,7 +212,7 @@ def wide_plan(widths: Sequence[int], rows: int, dtype: torch.dtype,
     prep = sum(tf32_prep_floats(b, a) for a, b in zip(widths[:-1], widths[1:])) if f32 else 0
     return WidePlan(widths, rows, dtype, max(1, min(sms, tiles)), slices, splits,
                     per * WIDE_BLOCK_ROWS, tuple(planes), plane_rows, off, splits * dw_floats,
-                    prep)
+                    plane_rows * bit_elems * (4 if f32 else 2) // 4, prep)
 
 
 def wide_planes(plan: WidePlan, scratch: torch.Tensor) -> List[Optional[torch.Tensor]]:
@@ -240,6 +243,56 @@ def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     # ties away from zero: add half a TF32 ulp to the magnitude, then cut
     small = ((rest + 0x1000) & -0x2000).view(torch.float32)
     return big, small
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, fault: Optional[str] = None) -> torch.Tensor:
+    """a @ b (f32) as the wide f32 kernels form it: small(a) big(b) +
+    fin(a) small(b) + big(a) big(b) into one f32 accumulator (split_tf32;
+    fin(a) is big(a) where a is finite, else 0). A ``fault`` plants what a
+    faulty kernel would do, to read what a check sees of it: 'one_pass'
+    rounds both operands to TF32 (nearest, ties away) and takes one
+    product; 'no_small_a' drops the small(a) big(b) term."""
+    if fault == "one_pass":
+        def rnd(v):
+            return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        return rnd(a) @ rnd(b)
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    acc = torch.where(torch.isfinite(a), a_big, torch.zeros_like(a)) @ b_small + a_big @ b_big
+    return acc if fault == "no_small_a" else a_small @ b_big + acc
+
+
+def forward_3xtf32(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                   fault: Optional[str] = None) -> torch.Tensor:
+    """fused_mlp_reference in f32 with every product formed as the wide
+    f32 forward kernel forms it (mm_3xtf32, with its ``fault``)."""
+    h = x
+    for i, w in enumerate(weights):
+        h = mm_3xtf32(h, w, fault)
+        if i + 1 < len(weights):
+            h = torch.relu(h)
+    return h
+
+
+def backward_3xtf32(x: torch.Tensor, weights: Sequence[torch.Tensor], g: torch.Tensor,
+                    need_dx: bool = True, fault: Optional[str] = None
+                    ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+    """fused_mlp_backward_reference in f32 with each dW_i = post_i^T g
+    formed as the wide f32 dW kernel forms it (mm_3xtf32, post the register
+    operand, with its ``fault``); the recompute and the dgrad as the plain
+    version's steps, as the kernels' CUDA-core chains take them."""
+    post = [x]
+    for w in weights[:-1]:
+        post.append(torch.relu(post[-1] @ w))
+    dws: List[torch.Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    for i in range(len(weights) - 1, -1, -1):
+        dws[i] = mm_3xtf32(post[i].T.contiguous(), g, fault)
+        if i == 0 and not need_dx:
+            return None, dws
+        g = g @ weights[i].T
+        if i > 0:
+            g = g * (post[i] > 0.0)
+    return g, dws
 
 
 def split_bf16(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,9 +326,9 @@ def _library() -> ctypes.CDLL:
     lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr, i64,
                                        ptr]
     lib.fused_mlp_wide_bwd_f32.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64, ptrs,
-                                           ptr, i64, ptr, i32, i64, i32, i32, ptr]
+                                           i64, ptr, i64, ptr, i32, i64, i32, i32, ptr]
     lib.fused_mlp_wide_bwd_bf16.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64,
-                                            ptrs, ptr, i32, i64, i32, i32, ptr]
+                                            ptrs, i64, ptr, i32, i64, i32, i32, ptr]
     for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd,
                lib.fused_mlp_wide_init, lib.fused_mlp_wide_fwd, lib.fused_mlp_wide_bwd_f32,
                lib.fused_mlp_wide_bwd_bf16):
@@ -545,14 +598,16 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
             if dtype == torch.bfloat16:
                 err = lib.fused_mlp_wide_bwd_bf16(
                     x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
-                    len(weights), m, c_planes, partial.data_ptr(), plan.dw_splits,
+                    len(weights), m, c_planes, plan.bit_words, partial.data_ptr(),
+                    plan.dw_splits,
                     plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
                     plan.chain_ctas, stream)
             else:
                 prep = torch.empty(plan.prep_floats, dtype=torch.float32, device=x.device)
                 err = lib.fused_mlp_wide_bwd_f32(
                     x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
-                    len(weights), m, c_planes, prep.data_ptr(), plan.prep_floats,
+                    len(weights), m, c_planes, plan.bit_words, prep.data_ptr(),
+                    plan.prep_floats,
                     partial.data_ptr(), plan.dw_splits,
                     plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
                     plan.chain_ctas, stream)

@@ -1,8 +1,9 @@
 """The wide f32 fused-MLP kernels' arithmetic on the CPU: the TF32 split
-of every operand (ops/cuda/fused_mlp.py::split_tf32), a torch emulation of
-the kernels' three-pass (3xTF32) products (the forward's and dW's; the
-backward's recompute and dgrad run f32 on the CUDA cores) against the plain
-forward and backward, the two planted faults the card's f32 check must see,
+of every operand (ops/cuda/fused_mlp.py::split_tf32), the torch emulation of
+the kernels' three-pass (3xTF32) products (forward_3xtf32, backward_3xtf32:
+the forward's and dW's; the backward's recompute and dgrad run f32 on the
+CUDA cores) against the plain forward and backward, the two planted faults
+the card's f32 check must see,
 and the f32 launch plan (wide_plan). The kernels themselves run in
 test_torch_cuda_kernels.py on a GPU."""
 import numpy as np
@@ -22,50 +23,6 @@ CHAINS = [(64, 272, 272, 272), (48, 96, 80, 16), (16, 64, 3)]
 
 def _bits(v: torch.Tensor) -> torch.Tensor:
     return v.contiguous().view(torch.int32)
-
-
-def _tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """v rounded to TF32 (nearest, ties away from zero): one pass."""
-    return ((_bits(v) + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor, fault=None) -> torch.Tensor:
-    """a @ b as the kernels form it (f32 accumulation): small(a) big(b) +
-    fin(a) small(b) + big(a) big(b), fin(a) = big(a) where a is finite.
-    'one_pass' rounds both operands to TF32 and takes one product;
-    'no_small_a' drops the small(a) big(b) term."""
-    if fault == "one_pass":
-        return _tf32_round(a) @ _tf32_round(b)
-    a_big, a_small = fm.split_tf32(a)
-    b_big, b_small = fm.split_tf32(b)
-    a_fin = torch.where(torch.isfinite(a), a_big, torch.zeros_like(a))
-    acc = a_fin @ b_small + a_big @ b_big
-    return acc if fault == "no_small_a" else a_small @ b_big + acc
-
-
-def _forward(x, weights, fault=None):
-    h = x
-    for i, w in enumerate(weights):
-        h = _mm(h, w, fault)
-        if i + 1 < len(weights):
-            h = torch.relu(h)
-    return h
-
-
-def _backward(x, weights, g, fault=None):
-    """The kernels' backward: the recompute and the dgrad in f32 (on the
-    CUDA cores, the plain version's steps), then from the top dW_i = post_i^T
-    g as the dW kernel forms it (3xTF32, post the register operand)."""
-    post = [x]
-    for w in weights[:-1]:
-        post.append(torch.relu(post[-1] @ w))
-    dws = [None] * len(weights)
-    for i in range(len(weights) - 1, -1, -1):
-        dws[i] = _mm(post[i].T.contiguous(), g, fault)
-        g = g @ weights[i].T
-        if i > 0:
-            g = g * (post[i] > 0.0)
-    return g, dws
 
 
 def _inputs(widths, rows, seed):
@@ -128,9 +85,9 @@ def test_three_pass_products_match_the_plain_versions(widths, seed):
     fused_mlp_reference and fused_mlp_backward_reference on random
     inputs: f32-level error, though each pass sees 11 significant bits."""
     x, ws, g = _inputs(widths, 512, seed)
-    assert _fwd_err(_forward(x, ws), fm.fused_mlp_reference(x, ws)) <= FWD_TOL
+    assert _fwd_err(fm.forward_3xtf32(x, ws), fm.fused_mlp_reference(x, ws)) <= FWD_TOL
     dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
-    dx_err, dw_err = _bwd_errs(*_backward(x, ws, g), dx_ref, dws_ref)
+    dx_err, dw_err = _bwd_errs(*fm.backward_3xtf32(x, ws, g), dx_ref, dws_ref)
     assert dx_err <= BWD_TOL[0] and dw_err <= BWD_TOL[1]
 
 
@@ -141,9 +98,9 @@ def test_planted_tf32_faults_fall_outside_the_limits(widths, fault):
     term, would read beyond the f32 limits in the forward and in dW: the
     random-input check on the card can see either."""
     x, ws, g = _inputs(widths, 512, 0)
-    assert _fwd_err(_forward(x, ws, fault), fm.fused_mlp_reference(x, ws)) > FWD_TOL
+    assert _fwd_err(fm.forward_3xtf32(x, ws, fault), fm.fused_mlp_reference(x, ws)) > FWD_TOL
     dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
-    dx_err, dw_err = _bwd_errs(*_backward(x, ws, g, fault), dx_ref, dws_ref)
+    dx_err, dw_err = _bwd_errs(*fm.backward_3xtf32(x, ws, g, fault=fault), dx_ref, dws_ref)
     assert dx_err <= BWD_TOL[0] < BWD_TOL[1] < dw_err
 
 
@@ -156,7 +113,7 @@ def test_three_pass_products_keep_non_finite_values():
     x[3, 2] = float("inf")
     x.view(torch.int32)[9, 5] = 0x7F800001
     x[20, 1] = float("-inf")
-    y, ref = _forward(x, ws), fm.fused_mlp_reference(x, ws)
+    y, ref = fm.forward_3xtf32(x, ws), fm.fused_mlp_reference(x, ws)
     assert torch.equal(torch.isnan(y), torch.isnan(ref))
     assert torch.equal(torch.isinf(y), torch.isinf(ref))
     assert torch.isinf(ref).any() and torch.isnan(ref).any()
@@ -192,6 +149,7 @@ def test_f32_plan_scratch_tiles_the_allocation(widths, rows):
     for v, w in zip(views[:2 * n], padded[:-1] + padded[1:]):
         assert v.numel() == plan.plane_rows * w
     words = fm.WIDE_F32_BIT_WORDS * fm.WIDE_F32_THREADS * plan.plane_rows // fm.WIDE_BLOCK_ROWS
+    assert plan.bit_words == words  # the size the C entry checks
     assert all(v.numel() == words for v in views[2 * n + 1:])
     assert all(p[1] * 4 % 16 == 0 for p in plan.planes)
     pad = {16: 64, 48: 64, 64: 64, 80: 256, 96: 256, 272: 272}

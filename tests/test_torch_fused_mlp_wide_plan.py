@@ -47,6 +47,7 @@ def test_scratch_planes_tile_the_allocation(widths, rows):
         if v is not None and w is not None:
             assert v.numel() == plan.plane_rows * w
     words = fm.WIDE_BIT_WORDS * fm.WIDE_THREADS_PER_GROUP * plan.plane_rows // fm.WIDE_BLOCK_ROWS
+    assert plan.bit_words == words  # the size the C entry checks
     assert all(v.numel() == 2 * words for v in views[3 * n + 1:])
     assert all(p[1] * 2 % 16 == 0 for p in plan.planes)  # bulk copies: 16-byte aligned
 
