@@ -123,6 +123,27 @@ Phases, each ending in one line (a failure exits non-zero):
 14. hash_march: the non-fused path (grid_impl 'hash', fused_march=False,
    compact_source 'network') trained 64 steps on the blobs scene; the
    PSNR must rise.
+15. garf_train: cli/train.main --model=garf on configs/barf/Easyship.yaml at
+   its widths (6 x 256 gaussian layers, no PE, 2040 rays x 128 samples, f32)
+   on the textured synthetic scene (12 views at 128x128) with camera.noise
+   0.06 and pose correction from step 0, GARF_STEPS steps: the train PSNR
+   must rise, the loss and params stay finite, model.ckpt restore bit for
+   bit into a fresh state (restored, saved again: the same bytes) and
+   transform_train.json hold the restored state's refined poses; then ms
+   per step, rays/s, samples/s and the device's busy share (profiler).
+16. pose_recovery: tests/test_barf_joint.py's protocol (8 views at 20x20,
+   1280 rays x 32 samples, noise 0.04, 200 refinement steps) at GARF width
+   (8 x 256): the field fitted on clean poses (POSE_FIT_STEPS), then se(3)
+   noise injected with refinement on and the field's rate at 1e-6; the raw
+   rotation and translation errors must fall below half their start.
+17. nerf_grad: one GARF and one BARF (c2f at progress 0.3) batch of
+   NERF_GRAD_RAYS rays with fixed draws: every parameter's and se3_refine's
+   gradient on the card in f32 against the same batch on the CPU in f64,
+   within NERF_GRAD_TOL (by model); with TF32 turned on the check must fail
+   (it sees a silent loss of precision).
+18. barf_train: phase 15 for --model=barf on configs/barf/barf_blender.yaml
+   (8 x 256, skip 4, PE 10/4, c2f [0.1, 0.5], noise 0.15, 1020 rays x 128
+   samples), BARF_STEPS steps.
 Then a JSON line describing each kernel (for the fused MLP and encode
 kernels its numbers are the bf16 ones, the Car slice's dtype, summed over
 the shapes; ``ms`` is graph_ms, ``call_ms`` median_ms), and last the
@@ -132,6 +153,7 @@ after it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -245,6 +267,37 @@ FLAGSHIP_GRAD_TOL = 6e-3
 # nearest, average out over the rows of dW); phase 11's random-input checks
 # see both
 FLAGSHIP_F32_GRAD_TOL = 1.5e-4
+# phases 15-18 (the BARF family, f32, TF32 off): cli/train's scalars every
+# NERF_SCALAR_EVERY steps; the train PSNR's rise from the first scalar to
+# the last must reach GARF_PSNR_RISE / BARF_PSNR_RISE (dB), half, rounded
+# down, of the first chip runs' rises on an H100 80GB HBM3 at 700 W: GARF
+# 6.260 -> 11.179 in 256 steps (lr 1e-4), BARF 6.461 -> 16.616 in 128
+GARF_STEPS, BARF_STEPS, NERF_SCALAR_EVERY = 256, 128, 32
+GARF_PSNR_RISE = 2.0
+BARF_PSNR_RISE = 5.0
+# the step's times: warm-up steps, timed steps, profiled steps
+NERF_WARMUP_STEPS, NERF_TIMED_STEPS, NERF_PROFILED_STEPS = 3, 20, 4
+# phase 16: tests/test_barf_joint.py's protocol (its scene, rays, samples,
+# noise and refinement) at GARF width (8 x 256, NeRFTrainConfig's default,
+# as scripts/garf_budget.py): fit steps and learning rates, the injected
+# noise, refine steps and pose learning rates. GARF fits slowly (its sigma
+# 0.1 gaussians on raw xyz): at the test's 350 steps and lr 5e-3 its train
+# PSNR stays near 13-18 dB and the poses drift; 2000 steps at lr 2e-3 ->
+# 5e-4 reach ~24 dB, and the raw errors fall to 0.34 (R) and 0.37 (t) of
+# their start (first chip run, H100 80GB HBM3, 700 W)
+POSE_ARCH = dict(model="garf")
+POSE_VIEWS, POSE_SIZE, POSE_RAYS, POSE_SAMPLES = 8, 20, 1280, 32
+POSE_FIT_STEPS, POSE_FIT_LR = 2000, (2e-3, 5e-4)
+POSE_NOISE, POSE_REFINE_STEPS, POSE_LR = 0.04, 200, (5e-3, 1e-3)
+# phase 17: rays of the gradient batch (the CPU f64 reference runs them
+# all), and the limit on |a-b|/|b| per tensor, card f32 against CPU f64, by
+# model: ~4x the first chip run's largest reading (H100 80GB HBM3, 700 W:
+# GARF 2.149e-3 params, 2.528e-3 se3_refine; BARF 3.090e-4, 2.921e-4).
+# The f32 error is the problem's own: GARF's sigma 0.1 gaussians scale each
+# rounding ~100x per layer, and the CPU's f32 reads alike. TF32 read GARF
+# 1.22 and BARF 4.5e-2 / 8.9e-2 there: far beyond either limit
+NERF_GRAD_RAYS = 96
+NERF_GRAD_TOL = {"garf": 1e-2, "barf": 1.5e-3}
 # the encode backward's instance on the Car path (F = 2, bf16), mangled
 ENCODE_BWD_SASS = "brick_encode_bwd_kernelILi2ELb1E"
 
@@ -1523,6 +1576,275 @@ def phase_hash_march(card: str):
     return launches
 
 
+def nerf_cli_args(yaml: str, model: str, steps: int, out: str) -> list:
+    """cli/train's command line for a BARF-family phase: the yaml's model at
+    its widths on the textured synthetic scene (NERF_VIEWS views at
+    NERF_SIZE^2), steps with train scalars every NERF_SCALAR_EVERY."""
+    return [f"--model={model}", f"--yaml={yaml}", "--data.synthetic", "--data.textured",
+            f"--data.n_views={NERF_VIEWS}", f"--data.image_size=[{NERF_SIZE},{NERF_SIZE}]",
+            f"--max_iter_run={steps}", f"--freq.scalar={NERF_SCALAR_EVERY}",
+            f"--freq.val={steps // 2}", f"--freq.ckpt={steps // 2}", f"--output_root={out}"]
+
+
+def scalar_file(out_dir: str, name: str) -> list:
+    return [float(line.split()[1]) for line in open(f"{out_dir}/{name}.txt")]
+
+
+def nerf_step_times(what: str, tcfg, images, poses, intr, state, card: str) -> dict:
+    """Host ms per train step (NERF_TIMED_STEPS steps between synchronises,
+    after NERF_WARMUP_STEPS), rays/s and samples/s, and the device's busy
+    share of NERF_PROFILED_STEPS steps under torch.profiler; one line."""
+    from myc_nerfs_tpu_torch.train import nerf_trainer as nt
+
+    step = nt.make_train_step(tcfg, images, poses, intr)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, h, w = images.shape[:3]
+
+    def run(k, st):
+        for _ in range(k):
+            st, m = step(st, nt.draw_step(tcfg, n, h, w, gen, "cuda"))
+        return st, m
+
+    state, _ = run(NERF_WARMUP_STEPS, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = run(NERF_TIMED_STEPS, state)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / NERF_TIMED_STEPS
+    t0 = time.perf_counter()
+    run(NERF_PROFILED_STEPS, state)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof = profiling.device_profile(lambda: run(NERF_PROFILED_STEPS, state))
+    rays = n * (tcfg.rand_rays // n)
+    out = {"ms_per_step": ms, "rays_per_s": rays * 1e3 / ms,
+           "samples_per_s": rays * tcfg.sample_intvs * 1e3 / ms,
+           "device_ms_per_step": prof["device_ms"] / NERF_PROFILED_STEPS,
+           "busy_share": prof["device_ms"] / wall_ms}
+    print(f"{what}_time: {rays} rays x {tcfg.sample_intvs} samples, f32, TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}: "
+          f"ms_per_step={ms:.4f} rays_per_s={out['rays_per_s']:.0f} "
+          f"samples_per_s={out['samples_per_s']:.4e} "
+          f"device_ms_per_step={out['device_ms_per_step']:.4f} "
+          f"busy_share={out['busy_share']:.3f} loss={float(m['loss']):.5f} [{card}]", flush=True)
+    print_profile(f"{what}_profile: {NERF_PROFILED_STEPS} train steps, per step", prof, card,
+                  per=NERF_PROFILED_STEPS, wall_ms=wall_ms)
+    return out
+
+
+def phase_nerf_cli(card: str, phase: str, yaml: str, model: str, steps: int,
+                   overrides: list, expect: dict, psnr_rise: float):
+    """Phases 15 and 18: cli/train.main on ``yaml`` (plus ``overrides``) at
+    its widths on the synthetic scene for ``steps`` steps; the NeRFTrainConfig
+    must hold ``expect``; the train PSNR must rise by
+    psnr_rise, the loss and params stay finite, model.ckpt restore bit for
+    bit into a fresh state (restored and saved again, the same bytes) and
+    transform_train.json hold the restored state's refined poses. Then the
+    step's times. Returns (launch counts, times)."""
+    import os
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import train as cli_train
+    from myc_nerfs_tpu_torch.core.checkpoint import restore_checkpoint, save_checkpoint
+    from myc_nerfs_tpu_torch.evaluation.pose_export import load_transforms_json
+    from myc_nerfs_tpu_torch.geom.conventions import unparse_camera_barf
+    from myc_nerfs_tpu_torch.train import nerf_trainer as nt
+
+    with tempfile.TemporaryDirectory() as out:
+        args = nerf_cli_args(yaml, model, steps, out) + overrides
+        cfg = cli_train.load_run_config(args)
+        tcfg = cli_train.config_to_train_config(cfg)
+        if any(getattr(tcfg, k) != v for k, v in expect.items()):
+            fail(f"{phase}: {yaml} did not map as expected: {tcfg}")
+        reset_launches()
+        t0 = time.perf_counter()
+        out_dir = cli_train.main(args)
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        launches = read_launches()
+        psnr = scalar_file(out_dir, "train_psnr")
+        err_R = scalar_file(out_dir, "train_error_R")
+        images, poses, intr, _, _ = (x.cuda() if torch.is_tensor(x) else x
+                                     for x in cli_train.load_views(cfg))
+        fresh = nt.init_state(tcfg, torch.Generator(device="cuda").manual_seed(9),
+                              images.shape[0], "cuda")
+        ckpt = os.path.join(out_dir, "model.ckpt")
+        state, meta = restore_checkpoint(ckpt, fresh)
+        save_checkpoint(os.path.join(out, "again.ckpt"), state, step=meta["step"])
+        same = open(ckpt, "rb").read() == open(os.path.join(out, "again.ckpt"), "rb").read()
+        finite = all(bool(torch.isfinite(p).all()) for p in state.params.param_list()
+                     + [state.se3_refine])
+        frames, _, _ = load_transforms_json(os.path.join(out_dir, "transform_train.json"))
+        refined = unparse_camera_barf(nt.compose_refined_pose(tcfg, state, poses).cpu())
+        pose_err = float((frames[:, :3] - refined).abs().max())
+        moved = float(state.se3_refine.abs().max())
+    print(f"{phase}: cli/train --model={model} --yaml={yaml} widths={tcfg.widths_feat} "
+          f"skip={tcfg.skip} PE={tcfg.posenc_L3D}/{tcfg.posenc_Lview} c2f={tcfg.c2f} "
+          f"noise={tcfg.camera_noise} rays={images.shape[0] * (tcfg.rand_rays // images.shape[0])} "
+          f"samples={tcfg.sample_intvs} textured {NERF_VIEWS}x{NERF_SIZE}x{NERF_SIZE} "
+          f"steps={steps} s={t_cli:.2f} psnr_first={psnr[0]:.3f} psnr_last={psnr[-1]:.3f} "
+          f"error_R_first={err_R[0]:.5f} error_R_last={err_R[-1]:.5f} "
+          f"se3_refine_max={moved:.3e} ckpt_step={meta['step']} bit_for_bit={same} "
+          f"transform_train_err={pose_err:.2e} launches "
+          + (" ".join(f"{k}={v}" for k, v in launches.items() if v) or "none")
+          + f" [{card}]", flush=True)
+    if not finite:
+        fail(f"{phase}: a parameter or pose correction is not finite")
+    if not psnr[-1] > psnr[0] + psnr_rise:
+        fail(f"{phase}: train PSNR rose from {psnr[0]:.3f} to {psnr[-1]:.3f}")
+    if not (same and meta["step"] == steps):
+        fail(f"{phase}: model.ckpt did not restore bit for bit")
+    if not (pose_err <= 1e-6 and frames.shape[0] == NERF_VIEWS and moved > 0):
+        fail(f"{phase}: transform_train.json does not hold the refined poses ({pose_err})")
+    times = nerf_step_times(phase, tcfg, images, poses, intr, state, card)
+    return launches, times
+
+
+def phase_garf_train(card: str):
+    """Phase 15: GARF through cli/train on configs/barf/Easyship.yaml."""
+    expect = dict(model="garf", widths_feat=(256,) * 6, skip=(3,), posenc_L3D=None,
+                  rand_rays=2048, sample_intvs=128, camera_noise=0.06,
+                  start_pose_correct_iter=0, refine_pose=True, lr=1e-4)
+    return phase_nerf_cli(card, "garf_train", "configs/barf/Easyship.yaml", "garf",
+                          GARF_STEPS, ["--camera.noise=0.06", "--start_pose_correct_iter=0"],
+                          expect, GARF_PSNR_RISE)
+
+
+def phase_barf_train(card: str):
+    """Phase 18: BARF through cli/train on configs/barf/barf_blender.yaml."""
+    expect = dict(model="barf", widths_feat=(256,) * 8, skip=(4,), posenc_L3D=10,
+                  posenc_Lview=4, c2f=(0.1, 0.5), camera_noise=0.15, rand_rays=1024,
+                  sample_intvs=128, refine_pose=True)
+    return phase_nerf_cli(card, "barf_train", "configs/barf/barf_blender.yaml", "barf",
+                          BARF_STEPS, [], expect, BARF_PSNR_RISE)
+
+
+def phase_pose_recovery(card: str) -> None:
+    """Phase 16: tests/test_barf_joint.py's protocol at GARF width on the
+    card: fit the field on clean poses, then inject se(3) noise with
+    refinement on and the field's rate near 0; the raw (unaligned) rotation
+    and translation errors must fall below half their start."""
+    from myc_nerfs_tpu_torch.data.synthetic import make_scene
+    from myc_nerfs_tpu_torch.evaluation import pose_eval
+    from myc_nerfs_tpu_torch.train import nerf_trainer as nt
+
+    scene = make_scene(n_views=POSE_VIEWS, H=POSE_SIZE, W=POSE_SIZE, textured=True)
+    images, poses, intr = (x.cuda() for x in (scene.images, scene.poses, scene.intr))
+    n = images.shape[0]
+    fit = nt.NeRFTrainConfig(**POSE_ARCH, depth_range=scene.depth_range,
+                             rand_rays=POSE_RAYS, sample_intvs=POSE_SAMPLES,
+                             lr=POSE_FIT_LR[0], lr_end=POSE_FIT_LR[1], max_iter=POSE_FIT_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state = nt.init_state(fit, gen, n, "cuda")
+    step = nt.make_train_step(fit, images, poses, intr)
+    t0 = time.perf_counter()
+    for _ in range(POSE_FIT_STEPS):
+        state, m = step(state, nt.draw_step(fit, n, POSE_SIZE, POSE_SIZE, gen, "cuda"))
+    fit_psnr = float(m["psnr"])
+    refine = dataclasses.replace(fit, lr=1e-6, lr_end=1e-6, refine_pose=True,
+                                 camera_noise=POSE_NOISE, lr_pose=POSE_LR[0],
+                                 lr_pose_end=POSE_LR[1], max_iter=POSE_REFINE_STEPS)
+    state2 = nt.init_state(refine, torch.Generator(device="cuda").manual_seed(6), n, "cuda")
+    with torch.no_grad():
+        for a, b in zip(state2.params.param_list(), state.params.param_list()):
+            a.copy_(b)
+
+    def raw_err(st):
+        e = pose_eval.evaluate_camera_alignment(nt.compose_refined_pose(refine, st, poses),
+                                                poses)
+        return float(e.R.mean()), float(e.t.mean())
+
+    r0, t0_err = raw_err(state2)
+    step2 = nt.make_train_step(refine, images, poses, intr)
+    for _ in range(POSE_REFINE_STEPS):
+        state2, m = step2(state2, nt.draw_step(refine, n, POSE_SIZE, POSE_SIZE, gen, "cuda"))
+    r1, t1 = raw_err(state2)
+    torch.cuda.synchronize()
+    print(f"pose_recovery: {fit.model} widths={fit.widths_feat} skip={fit.skip} textured "
+          f"{POSE_VIEWS}x{POSE_SIZE}x{POSE_SIZE} rays="
+          f"{n * (fit.rand_rays // n)} samples={fit.sample_intvs} fit {POSE_FIT_STEPS} steps "
+          f"lr {POSE_FIT_LR[0]}->{POSE_FIT_LR[1]} psnr={fit_psnr:.3f}; noise={POSE_NOISE} "
+          f"refine {POSE_REFINE_STEPS} steps lr_pose {POSE_LR[0]}->{POSE_LR[1]} field lr 1e-6: "
+          f"R_err {math.degrees(r0):.4f} -> {math.degrees(r1):.4f} deg "
+          f"(ratio {r1 / r0:.4f}) t_err {t0_err:.5f} -> {t1:.5f} (ratio {t1 / t0_err:.4f}) "
+          f"s={time.perf_counter() - t0:.2f} [{card}]", flush=True)
+    if not (r1 < 0.5 * r0 and t1 < 0.5 * t0_err):
+        fail(f"pose_recovery: the raw pose errors did not halve (R {r0} -> {r1}, "
+             f"t {t0_err} -> {t1})")
+
+
+def nerf_gradients(tcfg, images, poses, intr, state, draws, dtype, device):
+    """Every parameter's and se3_refine's gradient of make_loss on one
+    batch, with the state, data and draws cast to ``dtype`` on ``device``
+    (the state's modules copied)."""
+    import copy
+
+    from myc_nerfs_tpu_torch.train import nerf_trainer as nt
+
+    cast = lambda t: None if t is None else t.to(device, dtype if t.is_floating_point()
+                                                 else t.dtype)  # noqa: E731
+    params = copy.deepcopy(state.params).to(device, dtype)
+    se3 = cast(state.se3_refine).requires_grad_(True)
+    st = state._replace(params=params, se3_refine=se3, pose_noise=cast(state.pose_noise),
+                        step=state.step.to(device))
+    loss_fn = nt.make_loss(tcfg, cast(images), cast(poses), cast(intr))
+    loss, _ = loss_fn(st, nt.StepDraws(*(cast(d) for d in draws)))
+    return torch.autograd.grad(loss, params.param_list() + [se3])
+
+
+def phase_nerf_grad(card: str) -> None:
+    """Phase 17: one GARF batch (Easyship.yaml, past its correction gate) and
+    one BARF batch (barf_blender.yaml, c2f at progress 0.3) of NERF_GRAD_RAYS
+    rays with fixed draws: every parameter's and se3_refine's gradient on the
+    card (f32) against the same batch on the CPU in float64, |a-b|/|b| per
+    tensor, held to NERF_GRAD_TOL; the same with TF32 turned on must exceed
+    it (the check sees a silent loss of precision)."""
+    from myc_nerfs_tpu_torch.cli import train as cli_train
+    from myc_nerfs_tpu_torch.data.synthetic import make_scene
+    from myc_nerfs_tpu_torch.train import nerf_trainer as nt
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("nerf_grad: TF32 is on for f32 matmuls before the check")
+    scene = make_scene(n_views=NERF_VIEWS, H=NERF_SIZE, W=NERF_SIZE, textured=True)
+    for model, yaml, progress in (("garf", "configs/barf/Easyship.yaml", 0.4),
+                                  ("barf", "configs/barf/barf_blender.yaml", 0.3)):
+        cfg = cli_train.load_run_config([f"--model={model}", f"--yaml={yaml}",
+                                         f"--nerf.rand_rays={NERF_GRAD_RAYS}",
+                                         "--camera.noise=0.06"])
+        tcfg = cli_train.config_to_train_config(cfg)
+        gen = torch.Generator().manual_seed(12)
+        state = nt.init_state(tcfg, gen, NERF_VIEWS, "cpu")
+        step = int(progress * tcfg.max_iter)
+        state = state._replace(se3_refine=0.02 * torch.randn((NERF_VIEWS, 6), generator=gen),
+                               step=torch.tensor(step, dtype=torch.int32))
+        draws = nt.draw_step(tcfg, NERF_VIEWS, NERF_SIZE, NERF_SIZE, gen)
+        data = (scene.images, scene.poses, scene.intr)
+        ref = nerf_gradients(tcfg, *data, state, draws, torch.float64, "cpu")
+        t0 = time.perf_counter()
+        card_grads = nerf_gradients(tcfg, *data, state, draws, torch.float32, "cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = nerf_gradients(tcfg, *data, state, draws, torch.float32, "cuda")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tol = NERF_GRAD_TOL[model]
+        errs = [rel(a.double().cpu(), b) for a, b in zip(card_grads, ref)]
+        tf32_errs = [rel(a.double().cpu(), b) for a, b in zip(tf32, ref)]
+        print(f"nerf_grad: {model} {yaml} widths={tcfg.widths_feat} step={step} "
+              f"(progress {step / tcfg.max_iter:.2f}) {NERF_VIEWS * (tcfg.rand_rays // NERF_VIEWS)}"
+              f" rays x {tcfg.sample_intvs} samples, card f32 vs CPU f64 |a-b|/|b|: "
+              f"params max={max(errs[:-1]):.3e} se3_refine={errs[-1]:.3e} "
+              f"limit={tol:.1e}; TF32 on: params max={max(tf32_errs[:-1]):.3e} "
+              f"se3_refine={tf32_errs[-1]:.3e} (sees={max(tf32_errs) > tol}) "
+              f"card_s={t_card:.2f} [{card}]", flush=True)
+        if not max(errs) <= tol:
+            fail(f"nerf_grad: {model} card gradient differs from the f64 one by {max(errs)}")
+        if not max(tf32_errs) > tol:
+            fail(f"nerf_grad: the {model} check does not see TF32 ({max(tf32_errs)})")
+
+
 def wide_backward_split(card: str) -> None:
     """Phase 9's split of the wide fused-MLP backward at WIDE_CHAIN and
     WIDE_ROWS by kernel, bf16 and f32."""
@@ -1653,7 +1975,12 @@ def main() -> None:
     hash_march = phase_hash_march(smi)
     phase_profile(smi, train_ctx, flagship_ctx)
     phase_split(smi, train_ctx)
-    runs = (grid, render, train, nerf, flagship, hash_march)  # the main-path runs
+    garf, _ = phase_garf_train(smi)
+    phase_pose_recovery(smi)
+    phase_nerf_grad(smi)
+    barf, _ = phase_barf_train(smi)
+    # the main-path runs (the BARF family's launch no kernel)
+    runs = (grid, render, train, nerf, flagship, hash_march, garf, barf)
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         if name in probe:

@@ -1,5 +1,6 @@
 """Convert the JAX package's model trees (as numpy arrays) into the port's
-state and back, for an NGPModel or an OriginNeRFModel.
+state and back, for an NGPModel, an OriginNeRFModel, a NeRFMLP or the
+CoarseFine pair of fine sampling.
 
 - NGP params: ``{"table": tables, "mlp": {"params": {"density0": {"kernel":
   [in, out]}, ...}}}`` where tables is the per-group list ('brick3'; a
@@ -7,8 +8,12 @@ state and back, for an NGPModel or an OriginNeRFModel.
   [n_params, F] array ('hash');
 - OriginNeRF params: ``{"mlp": {"params": {"pts_0": {"bias": [out],
   "kernel": [in, out]}, ..., "views_0", "feature", "alpha", "rgb"}}}``;
+- NeRFMLP params: ``{"params": {"Dense_0": {"bias": [out], "kernel": [in,
+  out]}, ...}}``, flax's compact-call order (feature layers, then rgb
+  layers); CoarseFine: ``{"coarse": <NeRFMLP tree>, "fine": <NeRFMLP tree>}``;
 - the optax.adam state: ``({"count", "mu", "nu"}, {"count"})``, mu and nu
-  shaped like params (a checkpoint keys the tuple "0", "1");
+  shaped like params (a checkpoint keys the tuple "0", "1"); for the pose
+  corrections of the NeRF trainer, mu and nu are single [n_images, 6] arrays;
 - ``OccupancyState``: density_grid, bitfield, mean_density, ema_step.
 
 The port keeps parameters and moments as lists in the model's param_list()
@@ -25,6 +30,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..models.nerf_mlp import CoarseFine, NeRFMLP
 from ..models.ngp import NGPNetwork
 from ..models.ori_nerf import OriginNeRFModel
 from ..render.occupancy import OccupancyState
@@ -57,11 +63,16 @@ def _table_list(tables: Any) -> List[Any]:
 
 def param_tree(model, leaves: Sequence[Any]) -> Dict[str, Any]:
     """Leaves in param_list() order -> the JAX params tree layout."""
-    if isinstance(model, OriginNeRFModel):
+    if isinstance(model, CoarseFine):
+        n = len(model.coarse.param_list())
+        return {"coarse": param_tree(model.coarse, leaves[:n]),
+                "fine": param_tree(model.fine, leaves[n:])}
+    if isinstance(model, (OriginNeRFModel, NeRFMLP)):
         layers: Dict[str, Dict[str, Any]] = {}
         for (layer, kind), leaf in zip(model.leaf_names(), leaves):
             layers.setdefault(layer, {})[kind] = leaf
-        return {"mlp": {"params": layers}}
+        return ({"params": layers} if isinstance(model, NeRFMLP)
+                else {"mlp": {"params": layers}})
     n = len(model.tables)
     tables = list(leaves[:n])
     return {"table": tables if model.cfg.grid_impl != "hash" else tables[0],
@@ -71,6 +82,18 @@ def param_tree(model, leaves: Sequence[Any]) -> Dict[str, Any]:
 
 def param_leaves(model, tree: Dict[str, Any]) -> List[Any]:
     """A JAX params tree -> its leaves in param_list() order."""
+    if isinstance(model, CoarseFine):
+        if "coarse" not in tree:
+            raise ValueError("a params tree without fine sampling for a CoarseFine model")
+        return param_leaves(model.coarse, tree["coarse"]) + param_leaves(model.fine,
+                                                                         tree["fine"])
+    if isinstance(model, NeRFMLP):
+        if "params" not in tree:
+            raise ValueError("not a NeRFMLP params tree (fine sampling's coarse/fine pair?)")
+        layers = tree["params"]
+        if len(layers) != len(model.kernels):
+            raise ValueError(f"{len(layers)} layers for a NeRFMLP with {len(model.kernels)}")
+        return [layers[layer][kind] for layer, kind in model.leaf_names()]
     if isinstance(model, OriginNeRFModel):
         if "table" in tree:
             raise ValueError("an NGP params tree for an OriginNeRF model")
@@ -109,8 +132,8 @@ def params_to_numpy(model) -> Dict[str, Any]:
 
 
 # by model family, as the tests and chip_smoke name them
-load_ngp_params = load_ori_nerf_params = load_params
-ngp_params_to_numpy = ori_nerf_params_to_numpy = params_to_numpy
+load_ngp_params = load_ori_nerf_params = nerf_params_from_numpy = load_params
+ngp_params_to_numpy = ori_nerf_params_to_numpy = nerf_params_to_numpy = params_to_numpy
 
 
 def adam_from_numpy(model, opt_tree: Dict[str, Any]) -> AdamState:
@@ -151,3 +174,23 @@ def occupancy_from_numpy(tree: Dict[str, Any], device=None) -> OccupancyState:
 
 def occupancy_to_numpy(state: OccupancyState) -> Dict[str, np.ndarray]:
     return {k: _numpy(v) for k, v in state._asdict().items()}
+
+
+def pose_adam_from_numpy(opt_tree: Dict[str, Any], like: torch.Tensor) -> AdamState:
+    """The pose corrections' optax.adam state {"0": {"count", "mu", "nu"},
+    "1": {"count"}} -> AdamState on ``like``'s device and dtype."""
+    adam = opt_tree["0"]
+
+    def moment(src):
+        t = torch.empty_like(like)
+        _copy(t, src, "pose adam moment")
+        return t
+
+    return AdamState(count=_tensor(adam["count"]).to(like.device, torch.int32),
+                     mu=[moment(adam["mu"])], nu=[moment(adam["nu"])])
+
+
+def pose_adam_tree(opt: AdamState) -> Dict[str, Any]:
+    """The inverse of pose_adam_from_numpy, tensors as leaves."""
+    return {"0": {"count": opt.count, "mu": opt.mu[0], "nu": opt.nu[0]},
+            "1": {"count": opt.count}}

@@ -1,15 +1,20 @@
 """Trainer checkpoints in the JAX package's format (counterpart of
 myc_nerfs_tpu/core/checkpoint.py), read and written.
 
-A checkpoint is a flax-msgpack file of the NGPTrainState tree -- params,
-the optax.adam state, the occupancy grid and the step -- plus a JSON
-sidecar (``<path>.json``, e.g. {"step": N}), for an NGPModel or an
-OriginNeRFModel alike (core/bridge.py maps either model's parameters to its
-JAX tree). Arrays are msgpack ExtType 1 holding msgpack (shape, dtype name,
-C-order bytes); numpy scalars are ExtType 3 in the same form. The reader
-loads them into numpy (bf16 widened to f32, exactly); the writer stores
-each tensor in its own dtype, so ``myc_nerfs_tpu.core.checkpoint.
-restore_checkpoint`` reads the port's checkpoints into a JAX NGPTrainState.
+A checkpoint is a flax-msgpack file of a trainer state's tree plus a JSON
+sidecar (``<path>.json``, e.g. {"step": N}), and with ``keep_snapshot`` a
+copy at ``<path without extension>/<step>.ckpt``:
+- NGPTrainState: params, the optax.adam state, the occupancy grid and the
+  step, for an NGPModel or an OriginNeRFModel alike;
+- NeRFTrainState: params (NeRFMLP or the coarse/fine pair), se3_refine,
+  both Adam states (opt_state, opt_state_pose), pose_noise and the step.
+
+core/bridge.py maps each model's parameters to its JAX tree. Arrays are
+msgpack ExtType 1 holding msgpack (shape, dtype name, C-order bytes); numpy
+scalars are ExtType 3 in the same form. The reader loads them into numpy
+(bf16 widened to f32, exactly); the writer stores each tensor in its own
+dtype, so ``myc_nerfs_tpu.core.checkpoint.restore_checkpoint`` reads the
+port's checkpoints into the JAX NGPTrainState or NeRFTrainState.
 
 The msgpack codec is this module's own (``packb``/``unpackb``), written from
 the format's public specification for the subset a flax state dict uses:
@@ -27,8 +32,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .bridge import (adam_from_numpy, adam_tree, load_params,
-                     occupancy_from_numpy, param_tree)
+from ..train.nerf_trainer import NeRFTrainState
+from .bridge import (_tensor, adam_from_numpy, adam_tree, load_params, occupancy_from_numpy,
+                     param_tree, pose_adam_from_numpy, pose_adam_tree)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -249,14 +255,19 @@ def _tensor_ext(obj: Any) -> ExtType:
 
 
 def state_tree(state) -> Dict[str, Any]:
-    """The trainer ``state`` (NGPTrainState) as the flax state dict a
-    checkpoint holds, tensors as leaves (lists keyed "0", "1", ... as flax
-    stores them)."""
+    """The trainer ``state`` (NGPTrainState or NeRFTrainState) as the flax
+    state dict a checkpoint holds, tensors as leaves (lists keyed "0", "1",
+    ... as flax stores them)."""
     model = state.params
     tree = {"params": param_tree(model, model.param_list()),
             "opt_state": adam_tree(model, state.opt_state),
-            "occ": dict(state.occ._asdict()),
-            "step": torch.tensor(state.step, dtype=torch.int32)}
+            "step": torch.as_tensor(state.step, dtype=torch.int32)}
+    if isinstance(state, NeRFTrainState):
+        tree.update(se3_refine=state.se3_refine,
+                    opt_state_pose=pose_adam_tree(state.opt_state_pose),
+                    pose_noise=state.pose_noise)
+    else:
+        tree["occ"] = dict(state.occ._asdict())
 
     def keyed(node):
         if isinstance(node, dict):
@@ -269,9 +280,11 @@ def state_tree(state) -> Dict[str, Any]:
 
 
 def save_checkpoint(path: str, state, step: Optional[int] = None,
-                    meta: Optional[Dict] = None) -> str:
-    """Write the trainer ``state`` (NGPTrainState) to ``path`` in the JAX
-    package's layout, and the sidecar {"step": step, **meta}."""
+                    meta: Optional[Dict] = None, keep_snapshot: bool = False) -> str:
+    """Write the trainer ``state`` (NGPTrainState or NeRFTrainState) to
+    ``path`` in the JAX package's layout, the sidecar {"step": step, **meta},
+    and with ``keep_snapshot`` (and a step) a copy at
+    ``<path without extension>/<step>.ckpt`` (barf util.py:167-187)."""
     data = packb(state_tree(state), default=_tensor_ext)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
@@ -279,20 +292,36 @@ def save_checkpoint(path: str, state, step: Optional[int] = None,
     if meta is not None or step is not None:
         with open(path + ".json", "w") as f:
             json.dump({"step": step, **(meta or {})}, f)
+    if keep_snapshot and step is not None:
+        snap_dir = os.path.splitext(path)[0]
+        os.makedirs(snap_dir, exist_ok=True)
+        with open(os.path.join(snap_dir, f"{step}.ckpt"), "wb") as f:
+            f.write(data)
     return path
 
 
 def restore_checkpoint(path: str, state) -> Tuple[Any, Dict]:
-    """Load params, the Adam state, the occupancy grid and the step from a
-    checkpoint (the JAX package's or the port's) into the trainer ``state``
-    (NGPTrainState; its model is updated in place). Returns (new state,
-    sidecar meta)."""
+    """Load a checkpoint (the JAX package's or the port's) into the trainer
+    ``state``, its model updated in place: for an NGPTrainState params, the
+    Adam state, the occupancy grid and the step; for a NeRFTrainState
+    params, se3_refine, both Adam states, pose_noise and the step. Returns
+    (new state, sidecar meta)."""
     tree = read_msgpack_tree(path)
     model = state.params
     load_params(model, tree["params"])
-    occ = occupancy_from_numpy(tree["occ"], state.occ.density_grid.device)
-    state = state._replace(occ=occ, step=int(np.asarray(tree["step"])),
-                           opt_state=adam_from_numpy(model, tree["opt_state"]))
+    opt_state = adam_from_numpy(model, tree["opt_state"])
+    if isinstance(state, NeRFTrainState):
+        like = state.se3_refine
+        state = state._replace(
+            se3_refine=_tensor(tree["se3_refine"]).to(like.device, like.dtype),
+            opt_state=opt_state,
+            opt_state_pose=pose_adam_from_numpy(tree["opt_state_pose"], like),
+            pose_noise=_tensor(tree["pose_noise"]).to(like.device, like.dtype),
+            step=_tensor(tree["step"]).to(like.device, torch.int32))
+    else:
+        occ = occupancy_from_numpy(tree["occ"], state.occ.density_grid.device)
+        state = state._replace(occ=occ, step=int(np.asarray(tree["step"])),
+                               opt_state=opt_state)
     meta: Dict = {}
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:

@@ -1,5 +1,6 @@
-"""Blender transforms.json datasets for NGP training (counterpart of
-myc_nerfs_tpu/data/blender.py; the jnerf NerfDataset, dataset.py).
+"""Blender transforms.json datasets (counterpart of
+myc_nerfs_tpu/data/blender.py): NGP training's (the jnerf NerfDataset,
+dataset.py) and BARF's views (``barf_views``).
 
 Host-side numpy, as in the JAX package: train = the train and val JSONs
 merged, NGP-space poses (correct_pose flips, t * 0.33 + offset, rows
@@ -146,6 +147,21 @@ def blend_background(scene: BlenderScene, bg: float = 1.0) -> np.ndarray:
     if scene.alphas is None:
         return scene.images
     return scene.images * scene.alphas + bg * (1.0 - scene.alphas)
+
+
+def barf_views(scene: BlenderScene, bg: float = 1.0
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(images [N, H, W, 3], poses [N, 3, 4], intr [N, 3, 3]) in BARF's
+    convention, float32: images over the background ``bg``, world->cam
+    poses invert(flip(diag(-1, -1, 1)) o c2w) (barf data/blender.py:80-92)."""
+    images = blend_background(scene, bg).astype(np.float32)
+    c2w = np.asarray(scene.c2w, np.float32)[:, :3]
+    R = c2w[..., :3] * np.asarray([-1.0, -1.0, 1.0], np.float32)
+    R_inv = R.transpose(0, 2, 1)
+    poses = np.concatenate([R_inv, -R_inv @ c2w[..., 3:]], axis=-1)
+    intr = np.asarray([[scene.focal, 0, scene.W / 2.0], [0, scene.focal, scene.H / 2.0],
+                       [0, 0, 1.0]], np.float32)
+    return images, poses, np.broadcast_to(intr, (c2w.shape[0], 3, 3)).copy()
 
 
 @dataclasses.dataclass

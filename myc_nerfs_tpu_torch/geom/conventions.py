@@ -1,12 +1,16 @@
 """Camera-pose conventions (counterpart of myc_nerfs_tpu/geom/conventions.py).
 
-Only the NGP one is ported, which the blender loader needs: per-axis sign
-flips (correct_pose), t*scale+offset, row cycle [1, 2, 0] (jnerf
-dataset.py:313-320).
+- NGP: per-axis sign flips (correct_pose), t*scale+offset, row cycle
+  [1, 2, 0] (jnerf dataset.py:313-320), for the blender loader;
+- BARF, back from world->cam [3, 4] to Blender c2w for the pose export
+  (the parse is data/blender.py::barf_views).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .pose import compose_pair, invert_pose, make_pose
 
 NERF_SCALE = 0.33  # jnerf dataset.py: global scene scale applied to t
 
@@ -19,3 +23,11 @@ def matrix_nerf2ngp(matrix, scale, offset, correct_pose=(1, -1, -1)) -> np.ndarr
     m = m * np.concatenate([cp, np.ones((1,), np.float32)])[None, :]
     m[:, 3] = m[:, 3] * np.float32(scale) + np.asarray(offset, np.float32)
     return m[[1, 2, 0]]
+
+
+def unparse_camera_barf(pose: torch.Tensor) -> torch.Tensor:
+    """BARF world->cam [..., 3, 4] -> Blender c2w rows [..., 3, 4]:
+    flip(diag(-1, -1, 1)) o invert(pose), the inverse of the parse in
+    data/blender.py::barf_views (the pose export, barf.py:167-202)."""
+    flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0], dtype=pose.dtype, device=pose.device))
+    return compose_pair(make_pose(R=flip).expand(pose.shape[:-2] + (3, 4)), invert_pose(pose))

@@ -134,21 +134,31 @@ def init_adam(params: Sequence[torch.Tensor]) -> AdamState:
 def adam_update(cfg: NGPTrainConfig, grads: Sequence[torch.Tensor],
                 state: AdamState) -> Tuple[List[torch.Tensor], AdamState]:
     """optax.adam(make_lr_schedule(cfg), b1, b2, eps) update: (updates to
-    add to the params, new state). Each operation rounds to its operands'
+    add to the params, new state)."""
+    return adam_step(make_lr_schedule(cfg), cfg.betas, cfg.eps, grads, state)
+
+
+def adam_step(schedule, betas: Tuple[float, float], eps: float,
+              grads: Sequence[torch.Tensor], state: AdamState
+              ) -> Tuple[List[torch.Tensor], AdamState]:
+    """optax.adam(schedule, b1, b2, eps) update: (updates to add to the
+    params, new state). The learning rate is ``schedule(count)`` at the
+    count before the increment. Each operation rounds to its operands'
     dtype, as optax does in bf16."""
-    b1, b2 = cfg.betas
+    b1, b2 = betas
     mu = [_weak(1 - b1, g.dtype) * g + _weak(b1, m.dtype) * m
           for g, m in zip(grads, state.mu)]
     nu = [_weak(1 - b2, g.dtype) * (g * g) + _weak(b2, v.dtype) * v
           for g, v in zip(grads, state.nu)]
     count = torch.where(state.count < torch.iinfo(torch.int32).max,
                         state.count + 1, state.count)
-    c1 = 1 - torch.tensor(b1, dtype=torch.float32, device=count.device) ** count
-    c2 = 1 - torch.tensor(b2, dtype=torch.float32, device=count.device) ** count
-    step_size = -make_lr_schedule(cfg)(state.count)
+    # f32 powers of the count on its device (no host copy, no sync)
+    c1 = 1 - torch.pow(b1, count)
+    c2 = 1 - torch.pow(b2, count)
+    step_size = -schedule(state.count)
     updates = []
     for m, v in zip(mu, nu):
-        u = (m / c1.to(m.dtype)) / (torch.sqrt(v / c2.to(v.dtype)) + _weak(cfg.eps, v.dtype))
+        u = (m / c1.to(m.dtype)) / (torch.sqrt(v / c2.to(v.dtype)) + _weak(eps, v.dtype))
         updates.append(step_size.to(u.dtype) * u)
     return updates, AdamState(count=count, mu=mu, nu=nu)
 
