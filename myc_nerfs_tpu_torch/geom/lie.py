@@ -13,8 +13,7 @@ import math
 
 import torch
 
-__all__ = ["skew", "taylor_A", "taylor_B", "taylor_C", "so3_to_SO3",
-           "SO3_to_so3", "se3_to_SE3", "SE3_to_se3"]
+__all__ = ["skew", "taylor_A", "so3_to_SO3", "SO3_to_so3", "se3_to_SE3", "SE3_to_se3"]
 
 
 def skew(w: torch.Tensor) -> torch.Tensor:
@@ -38,31 +37,21 @@ def _taylor_series_sq(x2: torch.Tensor, denom_step, nth: int) -> torch.Tensor:
     return ans
 
 
-def _A_sq(x2, nth=10):
+def _A_sq(x2, nth=10):  # sin(x)/x of x2 = x^2
     return _taylor_series_sq(x2, lambda d, i: d * (2 * i) * (2 * i + 1) if i > 0 else d, nth)
 
 
-def _B_sq(x2, nth=10):
+def _B_sq(x2, nth=10):  # (1-cos(x))/x^2
     return _taylor_series_sq(x2, lambda d, i: d * (2 * i + 1) * (2 * i + 2), nth)
 
 
-def _C_sq(x2, nth=10):
+def _C_sq(x2, nth=10):  # (x-sin(x))/x^3
     return _taylor_series_sq(x2, lambda d, i: d * (2 * i + 2) * (2 * i + 3), nth)
 
 
 def taylor_A(x: torch.Tensor, nth: int = 10) -> torch.Tensor:
     """sin(x)/x (camera.py:117-124)."""
     return _A_sq(x * x, nth)
-
-
-def taylor_B(x: torch.Tensor, nth: int = 10) -> torch.Tensor:
-    """(1-cos(x))/x^2 (camera.py:125-132)."""
-    return _B_sq(x * x, nth)
-
-
-def taylor_C(x: torch.Tensor, nth: int = 10) -> torch.Tensor:
-    """(x-sin(x))/x^3 (camera.py:133-140)."""
-    return _C_sq(x * x, nth)
 
 
 def _eye(like: torch.Tensor) -> torch.Tensor:

@@ -51,9 +51,9 @@ LIE_CASES = {"zero": np.zeros((3, 6), np.float32), "tiny": _se3(0, 3, 1e-4),
 
 @pytest.mark.parametrize("case", sorted(LIE_CASES))
 def test_lie_maps_match_jax(case):
-    """skew, so3_to_SO3, se3_to_SE3 and the log maps SO3_to_so3 /
-    SE3_to_se3 on their outputs (rtol 1e-5, atol 1e-6: the same series in
-    f32, one library's rounding from the other's)."""
+    """skew, so3_to_SO3, se3_to_SE3, the log maps SO3_to_so3 / SE3_to_se3
+    on their outputs and the three series (rtol 1e-5, atol 1e-6: the same
+    series in f32, one library's rounding from the other's)."""
     wu = LIE_CASES[case]
     _close(tlie.skew(_t(wu[:, :3])), jlie.skew(jnp.asarray(wu[:, :3])))
     R_t, R_j = tlie.so3_to_SO3(_t(wu[:, :3])), jlie.so3_to_SO3(jnp.asarray(wu[:, :3]))
@@ -63,9 +63,9 @@ def test_lie_maps_match_jax(case):
     _close(tlie.SO3_to_so3(_t(R_j)), jlie.SO3_to_so3(R_j), atol=2e-5)
     _close(tlie.SE3_to_se3(_t(Rt_j)), jlie.SE3_to_se3(Rt_j), atol=2e-5)
     x = np.linspace(0.0, 2.0, 7, dtype=np.float32)
-    for tf, jf in ((tlie.taylor_A, jlie.taylor_A), (tlie.taylor_B, jlie.taylor_B),
-                   (tlie.taylor_C, jlie.taylor_C)):
-        _close(tf(_t(x)), jf(jnp.asarray(x)))
+    _close(tlie.taylor_A(_t(x)), jlie.taylor_A(jnp.asarray(x)))
+    for tf, jf in ((tlie._B_sq, jlie.taylor_B), (tlie._C_sq, jlie.taylor_C)):
+        _close(tf(_t(x * x)), jf(jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("case", sorted(LIE_CASES))
