@@ -144,6 +144,24 @@ Phases, each ending in one line (a failure exits non-zero):
 18. barf_train: phase 15 for --model=barf on configs/barf/barf_blender.yaml
    (8 x 256, skip 4, PE 10/4, c2f [0.1, 0.5], noise 0.15, 1020 rays x 128
    samples), BARF_STEPS steps.
+19. tensorf_train: cli/tensorf_train.main on configs/tensorf/Coffee.txt at
+   its widths (VM-split 16x3 / 48x3, app_dim 27, MLP_Fea 128, 4096 rays,
+   2097156 -> 27e6 voxels, step_ratio 0.5, Coffee's TV and L1) from a
+   temporary copy: the textured synthetic scene (12 views at 128x128),
+   demo_synthetic.txt's bbox, near and far, the events and n_iters / 10
+   (800 steps, every event once): the train PSNR must rise, the params
+   stay finite, the final grid be n_to_reso(27e6) of the shrunk aabb, the
+   checkpoint restore bit for bit; --render_only renders with PSNR and
+   SSIM, --export_mesh writes a .ply with faces.
+20. tensorf_step: the step at Coffee's hardest stage (bench.py::
+   measure_tensorf_train's shape: 300^3 VM-split, 4096 rays x 1036
+   samples, a 256^3 ball alpha mask, dilated; then no mask): ms per step,
+   rays/s, samples/s, the gated and shaded samples, host syncs per step,
+   peak memory, device time, busy share, top operations and their split.
+21. tensorf_variants: phase 19's treatment of Scar.txt (REFTensoRF, 800
+   steps) and Scarf.txt (NerfPlusPlus, 256 steps), the PSNR must rise; then one
+   batch of VM-split, REF and NeRF++ at 48^3: every parameter's gradient,
+   card f32 against CPU f64 (TF32 off), within TENSORF_GRAD_TOL.
 Then a JSON line describing each kernel (for the fused MLP and encode
 kernels its numbers are the bf16 ones, the Car slice's dtype, summed over
 the shapes; ``ms`` is graph_ms, ``call_ms`` median_ms), and last the
@@ -298,6 +316,26 @@ POSE_NOISE, POSE_REFINE_STEPS, POSE_LR = 0.04, 200, (5e-3, 1e-3)
 # 1.22 and BARF 4.5e-2 / 8.9e-2 there: far beyond either limit
 NERF_GRAD_RAYS = 96
 NERF_GRAD_TOL = {"garf": 1e-2, "barf": 1.5e-3}
+# phases 19-21 (TensoRF, f32, TF32 off): the synthetic scene of the CLI
+# runs; the steps of each run and its "iter N psnr" lines' interval; the
+# train PSNR's rise (phase 19: first line to last; phase 21: first line to
+# the last before the first mask update) must reach half, rounded down, of
+# the first chip runs' rises (H100 80GB HBM3, 700 W): Coffee 12.450 ->
+# 35.480 in 800 steps; Scar 12.45 -> 31.06 at step 192, Scarf 4.42 ->
+# 17.03 at step 64
+TENSORF_VIEWS, TENSORF_SIZE = 12, 128
+TENSORF_STEPS, TENSORF_LOG_EVERY = 800, 50
+TENSORF_PSNR_RISE = 11.0
+TENSORF_VARIANT_STEPS = {"REFTensoRF": 800, "NerfPlusPlus": 256}
+TENSORF_VARIANT_LOG_EVERY = 32
+TENSORF_VARIANT_PSNR_RISE = {"REFTensoRF": 9.0, "NerfPlusPlus": 6.0}
+# phase 20: warm-up, timed and profiled steps per stage
+TENSORF_STEP_WARMUP, TENSORF_STEP_TIMED, TENSORF_STEP_PROFILED = 3, 10, 3
+# phase 21's gradient batch, and the limit on |a-b|/|b| per tensor, card f32
+# against CPU f64: ~4x the first chip run's largest reading (H100 80GB
+# HBM3, 700 W: VM-split 6.203e-06, REF 1.160e-05, NeRF++ 1.511e-05)
+TENSORF_GRAD_RAYS = 256
+TENSORF_GRAD_TOL = 6e-5
 # the encode backward's instance on the Car path (F = 2, bf16), mangled
 ENCODE_BWD_SASS = "brick_encode_bwd_kernelILi2ELb1E"
 
@@ -1924,6 +1962,472 @@ def phase_profile(card: str, train_ctx, flagship_ctx) -> None:
                   wall_ms=wall_ms)
 
 
+# -- phases 19-21: TensoRF -----------------------------------------------------
+
+
+def tensorf_txt(src: str, out: str, overrides: dict) -> str:
+    """A copy of the config ``src`` in ``out`` with the keys of ``overrides``
+    set (replaced where the file has them, appended otherwise)."""
+    import os
+
+    lines, seen = [], set()
+    for line in open(src):
+        body = line.split("#", 1)[0]
+        key = body.split("=", 1)[0].strip()
+        if "=" in body and key in overrides:
+            lines.append(f"{key} = {overrides[key]}\n")
+            seen.add(key)
+        else:
+            lines.append(line)
+    lines += [f"{k} = {v}\n" for k, v in overrides.items() if k not in seen]
+    path = os.path.join(out, os.path.basename(src))
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
+
+
+def tensorf_synthetic(out: str, steps: int, events: dict) -> dict:
+    """The overrides that put a TensoRF config on the synthetic scene: the
+    textured field (with --textured), TENSORF_VIEWS views at TENSORF_SIZE^2,
+    demo_synthetic.txt's bbox / near / far, ``steps`` iterations, the
+    events ``events`` and the output under ``out``."""
+    return {"synthetic": True, "synthetic_size": TENSORF_SIZE,
+            "synthetic_views": TENSORF_VIEWS, "bbox": [-1.2] * 3 + [1.2] * 3, "near": 1.5,
+            "far": 4.5, "n_iters": steps, "basedir": out, **events}
+
+
+def tensorf_cli(argv: list) -> tuple:
+    """cli/tensorf_train.main(argv) with its stdout captured: (out_dir, the
+    (N, X) of its "iter N psnr X" lines, the launch counts, seconds)."""
+    import contextlib
+    import io
+
+    from myc_nerfs_tpu_torch.cli import tensorf_train as tcli
+
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out_dir = tcli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    psnr = [(int(line.split()[1]), float(line.split()[3]))
+            for line in buf.getvalue().splitlines() if line.startswith("iter ")]
+    return out_dir, psnr, launches, seconds
+
+
+def launch_text(launches: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in launches.items() if v) or "none"
+
+
+def phase_tensorf_train(card: str):
+    """Phase 19: cli/tensorf_train.main on configs/tensorf/Coffee.txt at its
+    widths (VM-split 16x3 / 48x3, app_dim 27, MLP_Fea 128 wide with PE 2/2,
+    softplus, 2097156 -> 27e6 voxels, 4096 rays, step_ratio 0.5, TV 0.3 /
+    0.3, L1 4e-5 / 2e-5, rm_weight_mask_thre 1e-3), from a temporary copy
+    with these cuts: the textured synthetic scene (TENSORF_VIEWS views at
+    TENSORF_SIZE^2; no Coffee images here), demo_synthetic.txt's bbox ([-1.2,
+    1.2]^3), near 1.5 and far 4.5, and the events and n_iters divided by
+    10 (upsamples at 200, 300, 400, 550, 700; alpha masks at 200 and 400;
+    800 steps): every event runs once. The train PSNR must rise by
+    TENSORF_PSNR_RISE, the params stay finite, the final grid be
+    n_to_reso(27e6, the shrunk aabb), the checkpoint restore bit for bit
+    into a fresh trainer (restored, saved again: the same bytes); then
+    --render_only renders the scene's views with PSNR and SSIM and
+    --export_mesh writes a .ply with faces. Returns the launch counts."""
+    import os
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import tensorf_train as tcli
+    from myc_nerfs_tpu_torch.core.checkpoint import read_tensorf_checkpoint
+    from myc_nerfs_tpu_torch.train import tensorf_trainer as ttt
+
+    with tempfile.TemporaryDirectory() as out:
+        events = {"upsamp_list": [200, 300, 400, 550, 700], "update_AlphaMask_list": [200, 400]}
+        cfg = tensorf_txt("configs/tensorf/Coffee.txt", out,
+                          tensorf_synthetic(out, TENSORF_STEPS, events))
+        a = tcli.parse_txt_config(cfg)
+        model_cfg, train_cfg = tcli.build_configs(a)
+        expect = dict(decomp="vm_split", density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48),
+                      app_dim=27, shading_mode="MLP_Fea", featureC=128, view_pe=2, fea_pe=2,
+                      fea2dense="softplus", step_ratio=0.5, ray_march_weight_thres=1e-3)
+        expect_t = dict(batch_size=4096, n_voxel_init=2097156, n_voxel_final=27000000,
+                        tv_weight_density=0.3, tv_weight_app=0.3, l1_weight_initial=4e-5,
+                        l1_weight_rest=2e-5)
+        if any(getattr(model_cfg, k) != v for k, v in expect.items()) or \
+                any(getattr(train_cfg, k) != v for k, v in expect_t.items()):
+            fail(f"tensorf_train: Coffee.txt did not map as expected: {model_cfg} {train_cfg}")
+        argv = ["--config", cfg, "--textured", "--log_every", str(TENSORF_LOG_EVERY)]
+        out_dir, log, launches, seconds = tensorf_cli(argv)
+        psnr = [p for _, p in log]
+        ckpt = os.path.join(out_dir, "Coffee.ckpt")
+        tree, meta = read_tensorf_checkpoint(ckpt)
+        finite = all(np.isfinite(v).all() for _, v in flat_tree(tree["params"]))
+        aabb = np.asarray(tree["aabb"], np.float64)
+        want_grid = ttt.n_to_reso(train_cfg.n_voxel_final, aabb)
+        trainer = tcli.build_family_trainer(a, model_cfg, train_cfg, np.asarray(a["bbox"],
+                                            np.float32).reshape(2, 3),
+                                            torch.Generator(device="cuda").manual_seed(5), "cuda")
+        tcli.restore_tensorf_ckpt(ckpt, trainer, for_training=True)
+        again = os.path.join(out, "again.ckpt")
+        tcli.save_tensorf_ckpt(again, trainer, "TensorVMSplit")
+        same = open(ckpt, "rb").read() == open(again, "rb").read()
+        t0 = time.perf_counter()
+        tcli.main(argv + ["--render_only", "1"])
+        t_render = time.perf_counter() - t0
+        mean = dict(line.split() for line in open(os.path.join(out_dir, "imgs_test_all",
+                                                               "mean.txt")))
+        t0 = time.perf_counter()
+        tcli.main(argv + ["--export_mesh", "1"])
+        t_mesh = time.perf_counter() - t0
+        ply = open(os.path.join(out_dir, "Coffee.ply")).read().splitlines()
+        n_faces = int(ply[6].split()[-1])
+    print(f"tensorf_train: cli/tensorf_train --config Coffee.txt (VM-split 16x3/48x3, app_dim 27, "
+          f"MLP_Fea 128, 4096 rays, step_ratio 0.5) textured {TENSORF_VIEWS}x{TENSORF_SIZE}x"
+          f"{TENSORF_SIZE} steps={meta['global_step']} s={seconds:.2f} psnr_first={psnr[0]:.3f} "
+          f"psnr_last={psnr[-1]:.3f} grid={meta['grid_size']} (n_to_reso(27e6)={want_grid}) "
+          f"aabb={np.round(aabb, 4).tolist()} alpha_volume={list(np.shape(tree['alpha_volume']))} "
+          f"bit_for_bit={same} render: psnr={float(mean['psnr']):.3f} "
+          f"ssim={float(mean['ssim']):.4f} s={t_render:.2f} mesh: faces={n_faces} "
+          f"s={t_mesh:.2f} launches {launch_text(launches)} [{card}]", flush=True)
+    if not finite:
+        fail("tensorf_train: a parameter is not finite")
+    if not psnr[-1] > psnr[0] + TENSORF_PSNR_RISE:
+        fail(f"tensorf_train: train PSNR rose from {psnr[0]:.3f} to {psnr[-1]:.3f}")
+    if list(meta["grid_size"]) != want_grid or not (aabb[1] - aabb[0] < 2.4).any():
+        fail(f"tensorf_train: final grid {meta['grid_size']} on aabb {aabb} is not "
+             f"n_to_reso(27e6) of a shrunk aabb ({want_grid})")
+    if not same:
+        fail("tensorf_train: the checkpoint did not restore bit for bit")
+    if not (np.isfinite(float(mean["psnr"])) and 0 < float(mean["ssim"]) <= 1 and n_faces > 0):
+        fail(f"tensorf_train: render {mean} or mesh ({n_faces} faces) failed")
+    return launches
+
+
+def flat_tree(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_tree(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def ball_rays(n_batches: int, batch: int, gen: torch.Generator):
+    """bench.py::measure_tensorf_train's rays: origins uniform in angle on
+    the sphere of radius 3, looking at the centre; random colours."""
+    theta = torch.rand(n_batches * batch, device="cuda", generator=gen) * 6.28318
+    phi = torch.rand(n_batches * batch, device="cuda", generator=gen) * 3.14159
+    o = torch.stack([3.0 * torch.cos(theta) * torch.sin(phi),
+                     3.0 * torch.sin(theta) * torch.sin(phi), 3.0 * torch.cos(phi)], -1)
+    d = -o / torch.linalg.norm(o, dim=-1, keepdim=True)
+    rays = torch.cat([o, d], -1).reshape(n_batches, batch, 6)
+    return rays, torch.rand((n_batches, batch, 3), device="cuda", generator=gen)
+
+
+def op_groups(prof: dict) -> dict:
+    """The profile's device ms by kind: grid_sample forward and backward,
+    GEMMs, index / scatter / gather, reductions and the rest (elementwise)."""
+    groups = {"grid_sample_fwd": 0.0, "grid_sample_bwd": 0.0, "gemm": 0.0, "index": 0.0,
+              "reduce": 0.0, "copy": 0.0, "elementwise": 0.0}
+    for name, (ms, _) in prof["by_name"].items():
+        low = name.lower()
+        if "grid_sampler" in low:
+            groups["grid_sample_bwd" if "backward" in low else "grid_sample_fwd"] += ms
+        elif any(k in low for k in ("gemm", "xmma", "cutlass", "sm90", "ampere_s", "cublas")):
+            groups["gemm"] += ms
+        elif any(k in low for k in ("index", "scatter", "gather", "nonzero", "masked")):
+            groups["index"] += ms
+        elif "reduce" in low:
+            groups["reduce"] += ms
+        elif "memcpy" in low or "memset" in low or "copy" in low:
+            groups["copy"] += ms
+        else:
+            groups["elementwise"] += ms
+    return groups
+
+
+def sync_sites(fn) -> list:
+    """The host syncs of one fn(), as "file:line" of the Python call that
+    made each (torch.cuda's sync debug mode warns once per synchronising
+    call)."""
+    import os
+    import traceback
+    import warnings
+
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            frames = [f for f in stack if "myc_nerfs_tpu_torch" in f.filename] or \
+                [f for f in stack if "warnings" not in f.filename][-2:]
+            if frames[-1].name != "set_sync_debug_mode":  # the harness's own, once
+                sites.append(f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno}"
+                             f"({frames[-1].name})")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def phase_tensorf_step(card: str) -> dict:
+    """Phase 20: the TensoRF train step at Coffee's hardest stage, the shape
+    of bench.py::measure_tensorf_train: VM-split at 300^3 (Coffee's widths,
+    random weights and a centred density bump, tensorf_bump, so that a
+    trained scene's share of samples passes the appearance threshold; at
+    bench.py's random init almost none does), 4096 rays from a sphere of
+    radius 3 at the centre,
+    step_ratio 0.5 (1036 samples per ray), TV 0.3 / 0.3 and L1 4e-5; first
+    with a 256^3 ball alpha mask (r < 0.35 of the box), corner-dilated,
+    then with no mask (the stage before the first mask update). For each:
+    ms per step on the host clock (TENSORF_STEP_TIMED steps after
+    TENSORF_STEP_WARMUP, the batches cycling through 16), rays/s, samples/s
+    (the ray's samples) and the samples that pass the gate and the
+    appearance threshold, the host syncs of one step, peak device memory,
+    and the device time, busy share, top device operations and the
+    split by kind of TENSORF_STEP_PROFILED steps under torch.profiler.
+    Returns the launch counts of the timed steps."""
+    from myc_nerfs_tpu_torch.models import tensorf as tfm
+    from myc_nerfs_tpu_torch.train import tensorf_trainer as ttt
+
+    mcfg = tfm.TensoRFConfig(decomp="vm_split", step_ratio=0.5)
+    cfg = ttt.TensoRFTrainConfig(n_voxel_init=300 ** 3, batch_size=4096, tv_weight_density=0.3,
+                                 tv_weight_app=0.3, l1_weight_initial=4e-5,
+                                 l1_weight_rest=2e-5)
+    aabb = np.array([[-1.2] * 3, [1.2] * 3], np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    trainer = ttt.TensoRFTrainer(mcfg, cfg, aabb, gen, "cuda")
+    # n_to_reso(300^3) of this box reads 299 a side (f64 rounding of the
+    # voxel size), as in bench.py; the stage is set to 300^3 itself
+    trainer.params = tfm.upsample_volume_grid(mcfg, trainer.params, (300, 300, 300))
+    trainer.geom = tfm.compute_stage_geom(mcfg, aabb, (300, 300, 300))
+    tensorf_bump(trainer.params)
+    if trainer.geom.n_samples != 1036 or trainer.geom.grid_size != (300, 300, 300):
+        fail(f"tensorf_step: the stage is {trainer.geom}, not 300^3 x 1036 samples")
+    rays, rgbs = ball_rays(16, cfg.batch_size, gen)
+    reso = 256
+    g = (torch.arange(reso, device="cuda") + 0.5) / reso - 0.5
+    r = torch.sqrt(g[:, None, None] ** 2 + g[None, :, None] ** 2 + g[None, None, :] ** 2)
+    ball = (r < 0.35).float()
+    counter = [0]
+
+    def step():
+        i = counter[0] % rays.shape[0]
+        counter[0] += 1
+        return trainer.train_step(rays[i], rgbs[i], trainer.draw_fn(trainer, cfg.batch_size, gen))
+
+    def run(k):
+        for _ in range(k):
+            m = step()
+        return m
+
+    out = {}
+    launches = None
+    for stage, vol in (("masked", ball), ("premask", None)):
+        trainer.buffers = tfm.prepare_alpha_buffers({**trainer.buffers, "alpha_volume": vol,
+                                                     "alpha_aabb": trainer.buffers["aabb"]})
+        trainer._rebuild(1.0)
+        run(TENSORF_STEP_WARMUP)
+        with torch.no_grad():
+            fwd = trainer.forward(trainer.params, rays[0],
+                                  trainer.draw_fn(trainer, cfg.batch_size, gen))
+            n_density = int(fwd.extras["valid"].sum())
+            n_app = int(fwd.extras["app_mask"].sum())
+        sites = sync_sites(step)
+        syncs = len(sites)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if stage == "masked":
+            reset_launches()
+        t0 = time.perf_counter()
+        m = run(TENSORF_STEP_TIMED)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TENSORF_STEP_TIMED
+        if stage == "masked":
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        run(TENSORF_STEP_PROFILED)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof = profiling.device_profile(lambda: run(TENSORF_STEP_PROFILED))
+        n_samples = cfg.batch_size * trainer.geom.n_samples
+        groups = op_groups(prof)
+        out[stage] = {"ms_per_step": ms, "rays_per_s": cfg.batch_size * 1e3 / ms,
+                      "samples_per_s": n_samples * 1e3 / ms,
+                      "device_ms_per_step": prof["device_ms"] / TENSORF_STEP_PROFILED,
+                      "busy_share": prof["device_ms"] / wall_ms, "peak_gib": peak,
+                      "syncs": syncs, "density_samples": n_density, "app_samples": n_app}
+        print(f"tensorf_step: {stage} VM-split 300^3 (16x3/48x3, app_dim 27, MLP_Fea 128) "
+              f"{cfg.batch_size} rays x {trainer.geom.n_samples} samples, f32, TF32 "
+              f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}"
+              f"{', 256^3 ball alpha mask (dilated)' if vol is not None else ', no alpha mask'}: "
+              f"ms_per_step={ms:.4f} rays_per_s={out[stage]['rays_per_s']:.0f} "
+              f"samples_per_s={out[stage]['samples_per_s']:.4e} density_samples={n_density} "
+              f"app_samples={n_app} syncs_per_step={syncs} ({','.join(sites)}) "
+              f"peak_gib={peak:.3f} "
+              f"device_ms_per_step={out[stage]['device_ms_per_step']:.4f} "
+              f"busy_share={out[stage]['busy_share']:.3f} mse={float(m['mse']):.5f} "
+              f"split_ms_per_step " + " ".join(f"{k}={v / TENSORF_STEP_PROFILED:.4f}"
+                                               for k, v in groups.items())
+              + f" [{card}]", flush=True)
+        print_profile(f"tensorf_step_profile: {stage}, {TENSORF_STEP_PROFILED} steps, per step",
+                      prof, card, per=TENSORF_STEP_PROFILED, wall_ms=wall_ms)
+    return launches
+
+
+def tensorf_bump(params) -> None:
+    """A centred density bump (planes + 0.25 gauss, lines + 1, in place):
+    density where a scene's object is, so weights pass the appearance
+    threshold at a random init."""
+    with torch.no_grad():
+        for pl in params["density_plane"]:
+            C, H, W = pl.shape
+            v, u = torch.meshgrid(torch.linspace(-1, 1, H, device=pl.device),
+                                  torch.linspace(-1, 1, W, device=pl.device), indexing="ij")
+            pl += 0.25 * torch.exp(-(u ** 2 + v ** 2) / 0.2)
+        for line in params["density_line"]:
+            line += 1.0
+
+
+def params_as(params, device, dtype):
+    """A copy of TensoRF params (factor tensors and modules) on ``device``
+    in ``dtype``, leaves requiring grad."""
+    import copy
+
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, torch.nn.Module):
+            out[k] = copy.deepcopy(v).to(device, dtype)
+        elif isinstance(v, (list, tuple)):
+            out[k] = [t.detach().to(device, dtype).requires_grad_(True) for t in v]
+        else:
+            out[k] = v.detach().to(device, dtype).requires_grad_(True)
+    return out
+
+
+def tensorf_gradients(trainer, rays, rgbs, draws, device, dtype) -> tuple:
+    """Every parameter's gradient of the trainer's loss on one batch, with
+    params, buffers, data and draws cast to ``dtype`` on ``device``; and
+    the batch's valid and appearance masks."""
+    from myc_nerfs_tpu_torch.models import tensorf as tfm
+    from myc_nerfs_tpu_torch.train import tensorf_trainer as ttt
+
+    cast = lambda t: t.to(device, dtype if t.is_floating_point() else t.dtype)  # noqa: E731
+    params = params_as(trainer.params, device, dtype)
+    bufs = {k: None if v is None else cast(v) for k, v in trainer.buffers.items()}
+    d = tuple(cast(x) for x in draws) if isinstance(draws, tuple) else cast(draws)
+    mc, geom, wb = trainer.model_cfg, trainer.geom, trainer.cfg.white_bg
+    fwd = lambda p, r, dr: trainer.forward_fn(mc, geom, p, bufs, r, dr, wb)  # noqa: E731
+    step = torch.tensor(trainer.global_step, dtype=torch.int32, device=device)
+    total, _, out = ttt.tensorf_loss(mc, trainer.cfg, fwd, trainer.extra_loss_fn,
+                                     trainer.lr_factor, params, cast(rays), cast(rgbs), d, step)
+    leaves = [t for _, t in tfm.param_items(params)]
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return grads, out.extras["valid"].cpu(), out.extras["app_mask"].cpu()
+
+
+def phase_tensorf_variants(card: str) -> list:
+    """Phase 21: phase 19's treatment of configs/tensorf/Scar.txt
+    (REFTensoRF, normal penalty 0.5, TV 2.0, rm_weight_mask_thre 1e-6; its
+    events are Coffee's: divided by 10, 800 steps) and Scarf.txt
+    (NerfPlusPlus: bg_D 3, bg_freq 2, radii 28, 512 bg samples, 1024 rays;
+    events divided by 100: 80 and 160, 256 steps): the train PSNR must rise
+    by TENSORF_VARIANT_PSNR_RISE before the first mask update, and stay
+    finite. At Scar's settings on this scene the first mask update
+    collapses the field: TV 2.0 spreads the density thin,
+    rm_weight_mask_thre 1e-6 lets thin density carry colour, and the mask
+    keeps alpha >= 1e-3 over one step without distance_scale (sigma >=
+    0.106), which cuts the thin density that renders the object; the PSNR
+    falls to the background's. The events are the JAX package's (the
+    staged parity test), and with TV 0.3, rm_weight_mask_thre 1e-3 or no
+    mask update the same cut does not collapse. So the rise is read up to
+    the last line before the first mask update, and the whole trajectory
+    is printed. Then one batch (TENSORF_GRAD_RAYS rays of the synthetic
+    scene, fixed draws) of each family (VM-split on Coffee.txt, REF,
+    NeRF++) at 48^3 voxels with a centred density bump: every parameter's
+    gradient on the card in f32 (TF32 off) against the CPU in f64, |a-b| /
+    |b| per tensor within TENSORF_GRAD_TOL. Returns the launch counts of
+    the two training runs."""
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import tensorf_train as tcli
+
+    runs = []
+    with tempfile.TemporaryDirectory() as out:
+        for src, name, events, expect in (
+                ("configs/tensorf/Scar.txt", "REFTensoRF",
+                 {"upsamp_list": [200, 300, 400, 550, 700], "update_AlphaMask_list": [200, 400]},
+                 {"normal_vector_penalty_weight": 0.5}),
+                ("configs/tensorf/Scarf.txt", "NerfPlusPlus",
+                 {"upsamp_list": [80, 160], "update_AlphaMask_list": [80, 160]},
+                 {"bg_D": 3, "bg_freq": 2, "radii": 28, "batch_size": 1024})):
+            steps = TENSORF_VARIANT_STEPS[name]
+            cfg = tensorf_txt(src, out, tensorf_synthetic(out, steps, events))
+            a = tcli.parse_txt_config(cfg)
+            if a["model_name"] != name or any(a[k] != v for k, v in expect.items()):
+                fail(f"tensorf_variants: {src} did not map as expected: {a}")
+            out_dir, log, launches, seconds = tensorf_cli(
+                ["--config", cfg, "--textured", "--log_every", str(TENSORF_VARIANT_LOG_EVERY)])
+            runs.append(launches)
+            psnr = [p for _, p in log]
+            first_mask = events["update_AlphaMask_list"][0]
+            pre = [p for it, p in log if it < first_mask][-1]
+            print(f"tensorf_variants: cli/tensorf_train --config {src} ({name}) textured "
+                  f"{TENSORF_VIEWS}x{TENSORF_SIZE}x{TENSORF_SIZE} steps={steps} "
+                  f"rays={a['batch_size']} s={seconds:.2f} psnr_first={psnr[0]:.3f} "
+                  f"psnr_before_first_mask={pre:.3f} psnr_last={psnr[-1]:.3f} "
+                  f"psnr_every_{TENSORF_VARIANT_LOG_EVERY}={[round(p, 2) for p in psnr]} "
+                  f"launches {launch_text(launches)} [{card}]", flush=True)
+            if not (pre > psnr[0] + TENSORF_VARIANT_PSNR_RISE[name]
+                    and all(np.isfinite(psnr))):
+                fail(f"tensorf_variants: {name} train PSNR rose from {psnr[0]:.3f} to "
+                     f"{pre:.3f} before the first mask update (last {psnr[-1]:.3f})")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("tensorf_variants: TF32 is on for f32 matmuls before the gradient check")
+    for src in ("configs/tensorf/Coffee.txt", "configs/tensorf/Scar.txt",
+                "configs/tensorf/Scarf.txt"):
+        a = tcli.parse_txt_config(src)
+        a.update(synthetic=True, synthetic_size=TENSORF_SIZE, synthetic_views=TENSORF_VIEWS,
+                 N_voxel_init=48 ** 3, bbox=[-1.2] * 3 + [1.2] * 3, near=1.5, far=4.5)
+        model_cfg, train_cfg = tcli.build_configs(a)
+        rays, rgbs, aabb, _ = tcli.load_rays(a, "cpu", textured=True)
+        gen = torch.Generator().manual_seed(21)
+        trainer = tcli.build_family_trainer(a, model_cfg, train_cfg, aabb, gen, "cpu")
+        tensorf_bump(trainer.params)
+        ids = torch.randint(0, rays.shape[0], (TENSORF_GRAD_RAYS,), generator=gen)
+        draws = trainer.draw_fn(trainer, TENSORF_GRAD_RAYS, gen)
+        batch = (rays[ids], rgbs[ids], draws)
+        ref, valid64, app64 = tensorf_gradients(trainer, *batch, "cpu", torch.float64)
+        t0 = time.perf_counter()
+        grads, valid32, app32 = tensorf_gradients(trainer, *batch, "cuda", torch.float32)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        errs = [rel(g.double().cpu(), r) for g, r in zip(grads, ref)]
+        tol = TENSORF_GRAD_TOL
+        print(f"tensorf_grad: {a['model_name']} {src} grid={trainer.geom.grid_size} "
+              f"{TENSORF_GRAD_RAYS} rays x {trainer.geom.n_samples} samples, app samples "
+              f"{int(app64.sum())} (f64) / {int(app32.sum())} (card f32), valid differing "
+              f"{int((valid64 != valid32).sum())}, app differing {int((app64 != app32).sum())}; "
+              f"card f32 vs CPU f64 |a-b|/|b| over {len(errs)} tensors: max={max(errs):.3e} "
+              f"median={float(np.median(errs)):.3e} limit={tol:.1e} card_s={t_card:.2f} "
+              f"[{card}]", flush=True)
+        if not max(errs) <= tol:
+            fail(f"tensorf_grad: {a['model_name']} card gradient differs from the f64 one by "
+                 f"{max(errs)}")
+    return runs
+
+
 # where each kernel comes from: its source and the TPU kernel (file:line of
 # the function that reaches pl.pallas_call) it replaces; "also_replaces"
 # lists the other probe kernels of the same operation
@@ -1979,8 +2483,12 @@ def main() -> None:
     phase_pose_recovery(smi)
     phase_nerf_grad(smi)
     barf, _ = phase_barf_train(smi)
-    # the main-path runs (the BARF family's launch no kernel)
-    runs = (grid, render, train, nerf, flagship, hash_march, garf, barf)
+    tensorf = phase_tensorf_train(smi)
+    tensorf_step = phase_tensorf_step(smi)
+    tensorf_variants = phase_tensorf_variants(smi)
+    # the main-path runs (the BARF family's and TensoRF's launch no kernel)
+    runs = (grid, render, train, nerf, flagship, hash_march, garf, barf, tensorf,
+            tensorf_step, *tensorf_variants)
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         if name in probe:

@@ -1,6 +1,7 @@
 """Convert the JAX package's model trees (as numpy arrays) into the port's
-state and back, for an NGPModel, an OriginNeRFModel, a NeRFMLP or the
-CoarseFine pair of fine sampling.
+state and back, for an NGPModel, an OriginNeRFModel, a NeRFMLP, the
+CoarseFine pair of fine sampling, and TensoRF's params and two Adams (at
+the end of the file).
 
 - NGP params: ``{"table": tables, "mlp": {"params": {"density0": {"kernel":
   [in, out]}, ...}}}`` where tables is the per-group list ('brick3'; a
@@ -194,3 +195,110 @@ def pose_adam_tree(opt: AdamState) -> Dict[str, Any]:
     """The inverse of pose_adam_from_numpy, tensors as leaves."""
     return {"0": {"count": opt.count, "mu": opt.mu[0], "nu": opt.nu[0]},
             "1": {"count": opt.count}}
+
+
+# -- TensoRF ------------------------------------------------------------------
+# params as the JAX tree: {"density_plane": (3 arrays), ..., "basis_mat",
+# "mlp": {"params": {"Dense_0": {"kernel", "bias"}, ...}}, "normal_linear":
+# {"w", "b"}, "bg_net": {"params": {...}}}; a checkpoint keys the tuples "0",
+# "1", "2". The optimizer is optax.multi_transform of two adams:
+# {"inner_states": {"net"|"spatial": {"inner_state": {"0": {"count", "mu",
+# "nu"}, "1": {"count"}}}}}, where mu and nu hold the group's params and an
+# empty dict (optax's MaskedNode) at every other top-level key.
+
+
+def tree_get(tree: Any, path: Sequence[str]) -> Any:
+    """The leaf of a JAX or checkpoint tree at ``path`` (tuple entries by
+    their index, checkpoint lists by their "0", "1", ... keys)."""
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def tree_from_items(items) -> Dict[str, Any]:
+    """Nested dicts from (path, leaf) pairs, keys sorted at every level (the
+    order of a flax checkpoint)."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    def sort(node):
+        return {k: sort(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+    return sort(tree)
+
+
+def tensorf_params_tree(params, leaf=_numpy) -> Dict[str, Any]:
+    """TensoRF params -> the JAX tree (lists keyed "0", "1", "2"), leaves
+    through ``leaf`` (numpy copies by default)."""
+    from ..models.tensorf import param_items
+
+    return tree_from_items((path, leaf(t)) for path, t in param_items(params))
+
+
+def load_tensorf_params(params, tree: Dict[str, Any]):
+    """A JAX (or checkpoint) TensoRF params tree into ``params``: new leaf
+    tensors for the factor grids and the basis matrix (any shape: stages
+    differ), the modules' parameters copied in place (shapes checked).
+    Returns the new params dict."""
+    from ..models.tensorf import param_items
+
+    new = dict(params)
+    for key, value in params.items():
+        if isinstance(value, torch.nn.Module):
+            continue
+        like = value[0] if isinstance(value, (list, tuple)) else value
+        conv = lambda a: _tensor(a).to(like.device, like.dtype).requires_grad_(True)  # noqa: E731
+        if isinstance(value, (list, tuple)):
+            new[key] = [conv(tree_get(tree, (key, str(i)))) for i in range(len(value))]
+        else:
+            new[key] = conv(tree[key])
+    for path, p in param_items(params):
+        if isinstance(params[path[0]], torch.nn.Module):
+            _copy(p, tree_get(tree, path), "/".join(path))
+    return new
+
+
+def tensorf_adam_tree(params, spatial: AdamState, net: AdamState) -> Dict[str, Any]:
+    """Both Adams -> the optax.multi_transform state tree, the port's tensors
+    as leaves."""
+    from ..models.tensorf import param_groups
+
+    groups = dict(zip(("spatial", "net"), param_groups(params)))
+    inner = {}
+    for name, opt in (("net", net), ("spatial", spatial)):
+        paths = groups[name]
+
+        def moments(leaves):
+            tree = tree_from_items(zip(paths, leaves))
+            return {k: tree.get(k, {}) for k in sorted(params)}
+        inner[name] = {"inner_state": {"0": {"count": opt.count, "mu": moments(opt.mu),
+                                             "nu": moments(opt.nu)},
+                                       "1": {"count": opt.count}}}
+    return {"inner_states": inner}
+
+
+def tensorf_adam_from_numpy(params, opt_tree: Dict[str, Any]):
+    """The multi_transform state tree -> (spatial AdamState, net AdamState)
+    on the params' device, moments shaped like the params."""
+    from ..models.tensorf import param_groups, param_items
+
+    tensors = dict(param_items(params))
+    out = []
+    for name, paths in zip(("spatial", "net"), param_groups(params)):
+        adam = opt_tree["inner_states"][name]["inner_state"]
+        adam = adam["0"] if isinstance(adam, dict) else adam[0]
+
+        def moments(tree):
+            res = []
+            for path in paths:
+                t = torch.empty_like(tensors[path], requires_grad=False)
+                _copy(t, tree_get(tree, path), "adam moment " + "/".join(path))
+                res.append(t)
+            return res
+        device = tensors[paths[0]].device if paths else None
+        out.append(AdamState(count=_tensor(adam["count"]).to(device, torch.int32),
+                             mu=moments(adam["mu"]), nu=moments(adam["nu"])))
+    return tuple(out)

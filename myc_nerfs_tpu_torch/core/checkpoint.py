@@ -7,7 +7,12 @@ copy at ``<path without extension>/<step>.ckpt``:
 - NGPTrainState: params, the optax.adam state, the occupancy grid and the
   step, for an NGPModel or an OriginNeRFModel alike;
 - NeRFTrainState: params (NeRFMLP or the coarse/fine pair), se3_refine,
-  both Adam states (opt_state, opt_state_pose), pose_noise and the step.
+  both Adam states (opt_state, opt_state_pose), pose_noise and the step;
+- a TensoRFTrainer (save_tensorf_checkpoint / read_tensorf_checkpoint):
+  params, aabb, alpha_aabb, alpha_volume ((0, 0, 0) without a mask) and
+  the optax.multi_transform state of its two Adams, with the sidecar
+  {"step", "model_name", "grid_size", "lr_scale", "global_step",
+  "has_opt_state"} from which cli/tensorf_train.py rebuilds the stage.
 
 core/bridge.py maps each model's parameters to its JAX tree. Arrays are
 msgpack ExtType 1 holding msgpack (shape, dtype name, C-order bytes); numpy
@@ -34,7 +39,8 @@ import torch
 
 from ..train.nerf_trainer import NeRFTrainState
 from .bridge import (_tensor, adam_from_numpy, adam_tree, load_params, occupancy_from_numpy,
-                     param_tree, pose_adam_from_numpy, pose_adam_tree)
+                     param_tree, pose_adam_from_numpy, pose_adam_tree, tensorf_adam_tree,
+                     tensorf_params_tree)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -332,3 +338,33 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, Dict]:
 def latest_checkpoint(directory: str, name: str = "model.ckpt") -> Optional[str]:
     path = os.path.join(directory, name)
     return path if os.path.exists(path) else None
+
+
+def tensorf_state_tree(trainer) -> Dict[str, Any]:
+    """A TensoRFTrainer's checkpoint tree, tensors as leaves, keys sorted."""
+    vol = trainer.buffers.get("alpha_volume")
+    return {"aabb": trainer.buffers["aabb"], "alpha_aabb": trainer.buffers["alpha_aabb"],
+            "alpha_volume": vol if vol is not None else torch.zeros((0, 0, 0)),
+            "opt_state": tensorf_adam_tree(trainer.params, trainer.opt_spatial,
+                                           trainer.opt_net),
+            "params": tensorf_params_tree(trainer.params, leaf=lambda t: t)}
+
+
+def save_tensorf_checkpoint(path: str, trainer, model_name: str) -> str:
+    """Write a TensoRFTrainer's state and its sidecar in the JAX package's
+    layout (cli/tensorf_train.py::save_tensorf_ckpt there)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(packb(tensorf_state_tree(trainer), default=_tensor_ext))
+    with open(path + ".json", "w") as f:
+        json.dump({"step": trainer.global_step, "model_name": model_name,
+                   "grid_size": list(trainer.geom.grid_size), "lr_scale": trainer.lr_scale,
+                   "global_step": trainer.global_step, "has_opt_state": True}, f)
+    return path
+
+
+def read_tensorf_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict]:
+    """(the checkpoint's tree as numpy, its sidecar)."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    return read_msgpack_tree(path), meta

@@ -1,6 +1,7 @@
 """Blender transforms.json datasets (counterpart of
 myc_nerfs_tpu/data/blender.py): NGP training's (the jnerf NerfDataset,
-dataset.py) and BARF's views (``barf_views``).
+dataset.py), BARF's views (``barf_views``) and TensoRF's flat ray store
+(``tensorf_ray_store``).
 
 Host-side numpy, as in the JAX package: train = the train and val JSONs
 merged, NGP-space poses (correct_pose flips, t * 0.33 + offset, rows
@@ -16,8 +17,10 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..geom import conventions
+from ..geom import rays as rays_lib
 
 NERF_SCALE = conventions.NERF_SCALE
 
@@ -162,6 +165,21 @@ def barf_views(scene: BlenderScene, bg: float = 1.0
     intr = np.asarray([[scene.focal, 0, scene.W / 2.0], [0, scene.focal, scene.H / 2.0],
                        [0, 0, 1.0]], np.float32)
     return images, poses, np.broadcast_to(intr, (c2w.shape[0], 3, 3)).copy()
+
+
+def tensorf_ray_store(scene: BlenderScene, bg: float = 1.0, device=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(all_rays [N*H*W, 6], all_rgbs [N*H*W, 3]) float32 on ``device``:
+    every pixel's (origin, unit direction) under blender2opencv poses
+    (tensorf dataLoader/blender.py:63-129), all images at once."""
+    images = torch.as_tensor(blend_background(scene, bg).astype(np.float32), device=device)
+    c2w = conventions.blender2opencv(torch.as_tensor(np.asarray(scene.c2w, np.float32),
+                                                     device=device))[:, :3]
+    dirs = rays_lib.get_ray_directions(scene.H, scene.W, scene.focal, device=device)
+    rays_d = dirs[None] @ c2w[:, None, :3, :3].transpose(-1, -2)   # [N, H, W, 3]
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    rays_o = c2w[:, None, None, :3, 3].expand(rays_d.shape)
+    return (torch.cat([rays_o, rays_d], dim=-1).reshape(-1, 6), images.reshape(-1, 3))
 
 
 @dataclasses.dataclass

@@ -3,7 +3,8 @@
 - NGP: per-axis sign flips (correct_pose), t*scale+offset, row cycle
   [1, 2, 0] (jnerf dataset.py:313-320), for the blender loader;
 - BARF, back from world->cam [3, 4] to Blender c2w for the pose export
-  (the parse is data/blender.py::barf_views).
+  (the parse is data/blender.py::barf_views);
+- TensoRF: Blender c2w to OpenCV axes (blender2opencv).
 """
 from __future__ import annotations
 
@@ -31,3 +32,10 @@ def unparse_camera_barf(pose: torch.Tensor) -> torch.Tensor:
     data/blender.py::barf_views (the pose export, barf.py:167-202)."""
     flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0], dtype=pose.dtype, device=pose.device))
     return compose_pair(make_pose(R=flip).expand(pose.shape[:-2] + (3, 4)), invert_pose(pose))
+
+
+def blender2opencv(c2w_blender: torch.Tensor) -> torch.Tensor:
+    """TensoRF's convention: c2w @ diag(1, -1, -1, 1) (dataLoader/blender.py:33,91)."""
+    b2cv = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=c2w_blender.dtype,
+                                   device=c2w_blender.device))
+    return c2w_blender @ b2cv

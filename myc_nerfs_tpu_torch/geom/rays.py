@@ -1,7 +1,7 @@
 """Ray generation (counterpart of myc_nerfs_tpu/geom/rays.py).
 
-Half-pixel-centre pixel grid (barf camera.py:234-252) and per-pixel
-camera-frame directions (tensorf ray_utils.py:81-129).
+Half-pixel-centre pixel grid (barf camera.py:234-252), per-pixel
+camera-frame directions and their world rays (tensorf ray_utils.py:81-153).
 """
 from __future__ import annotations
 
@@ -54,3 +54,13 @@ def get_ray_directions(H: int, W: int, focal, center=None,
         indexing="ij")
     return torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)],
                        dim=-1)
+
+
+def get_rays_from_directions(directions: torch.Tensor, c2w: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame directions [..., 3] rotated by c2w [3, 4]: (origins
+    [M, 3], unit directions [M, 3]) (tensorf ray_utils.py:132-153)."""
+    rays_d = directions @ c2w[:3, :3].t()
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)

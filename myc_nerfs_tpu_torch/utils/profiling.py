@@ -28,8 +28,8 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     """Run ``fn()`` once under torch.profiler (CPU and CUDA activity).
     Returns the host wall ms of the window (profiler on), the device ms
     (the union of the device events' intervals), the sum of the device
-    events by name (ms, with their count) for the TOP largest, and the
-    rest's sum."""
+    events by name (ms, with their count) for the TOP largest, the rest's
+    sum, and every event's sum by name ("by_name")."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -54,7 +54,7 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"wall_ms": 1e3 * wall, "device_ms": busy / 1e3, "events": len(spans),
             "kernels": {k: v for k, v in ranked[:TOP]},
-            "other_ms": sum(v[0] for _, v in ranked[TOP:])}
+            "other_ms": sum(v[0] for _, v in ranked[TOP:]), "by_name": dict(ranked)}
 
 
 def render_chunk_split(trainer, rays_o: torch.Tensor, rays_d: torch.Tensor,
