@@ -42,7 +42,8 @@ Phases, each ending in one line (a failure exits non-zero):
    zero outside one group's columns).
 6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
    line each, with their library calls and bounds; every probe must be
-   correct.
+   correct. The kernels line's gather_lanes entry is the 65536x128 probe
+   (96 MB moved), where its bytes, not the launch, set the time.
 7. slice: run_net.build_trainer on configs/ngp/Car.py (L16F2, 2^19,
    aabb_scale 4, fp16 -> bf16 MLPs, use_fully) with seeded random
    weights, 16 occupancy-grid updates, then two 800x800 frames rendered
@@ -162,6 +163,23 @@ Phases, each ending in one line (a failure exits non-zero):
    steps) and Scarf.txt (NerfPlusPlus, 256 steps), the PSNR must rise; then one
    batch of VM-split, REF and NeRF++ at 48^3: every parameter's gradient,
    card f32 against CPU f64 (TF32 off), within TENSORF_GRAD_TOL.
+22. evaluate: cli/train --model=garf on Easyship.yaml (phase 15's scene,
+   EVAL_STEPS steps), then cli/evaluate with optim.test_photo from view
+   EVAL_START: every output file must exist and the poses be finite; each
+   view's PSNR, test-time iterations, stop reason and ms per iteration.
+23. pose_chain: cli/pose_chain, the slice's main path, at L16F2 width cut to
+   CHAIN_ARGV (GARF 512 steps, NGP 256 per leg, 128^2, 12 views, tt 100):
+   each NGP leg's train PSNR must rise and the four NGP kernels run; on
+   view 0 of the gt leg, d loss / d se3 through the kernels against the
+   plain versions within CHAIN_GRAD_TOL; the test-time backward kernel's
+   time at its rows (its dW is discarded).
+24. tensorf_budget: cli/tensorf_budget on Coffee.txt at 128^2, 12 views,
+   BUDGET_STEPS steps straight (twice) and split by --stop_at / --resume:
+   the split run equals the straight one within BUDGET_SPLIT_FACTOR times
+   the straight runs' spread.
+25. umbrella: cli/test_scenes --synthetic (its result images must exist)
+   and entry() (rgb finite, brick_encode and fused_mlp launched, equal to
+   the plain versions' render within ENTRY_TOL).
 Then a JSON line describing each kernel (for the fused MLP and encode
 kernels its numbers are the bf16 ones, the Car slice's dtype, summed over
 the shapes; ``ms`` is graph_ms, ``call_ms`` median_ms), and last the
@@ -695,7 +713,7 @@ def phase_kernel_encode():
 # each probe kernel's entry in the JSON line: the probe record it takes its
 # numbers from
 PROBE_RECORDS = {"gather_rows": "gather_rows_float32",
-                 "gather_lanes": "gather_lanes_2048x128",
+                 "gather_lanes": "gather_lanes_65536x128",
                  "scatter_add_rows": "scatter_add_rows_f32",
                  "smem_scratch": "smem_scratch_227KB"}
 
@@ -2428,6 +2446,325 @@ def phase_tensorf_variants(card: str) -> list:
     return runs
 
 
+
+# phases 22-25 (the evaluation and pose-chain slice). Phase 22: the GARF run
+# evaluated (cli/train then cli/evaluate at Easyship.yaml's widths), views
+# from EVAL_START on, test-time optimisation at optim.test_iter
+# EVAL_TEST_ITER (at most 100 iterations per view)
+EVAL_STEPS, EVAL_START, EVAL_TEST_ITER = 256, 9, 1
+# phase 23: cli/pose_chain at L16F2 width with these cuts of its budget
+# (the reference scale: GARF 50000, NGP 6000 per leg, 256^2, 36 views, tt
+# 1500); then, on one view of the gt leg, d loss / d se3 through the
+# kernels against the plain versions (fused_mlp_plain's reference MLP,
+# paired_encode_reference), |a - b| / |b| within CHAIN_GRAD_TOL: the two
+# differ by the bf16 MLPs' rounding in another order
+CHAIN_ARGV = ["--garf_steps", "512", "--ngp_steps", "256", "--size", "128", "--views", "12",
+              "--tt_iters", "100", "--log_every", "256"]
+CHAIN_GRAD_TOL = 2.0 ** -5
+# phase 24: cli/tensorf_budget on Coffee.txt at 128^2, 12 views (0, 4, 8
+# held out), BUDGET_STEPS steps in chunks of BUDGET_STEPS // 2. The split
+# run (--stop_at, --resume) is held against the straight run within
+# BUDGET_SPLIT_FACTOR times the spread of two straight runs (the
+# grid_sample backward's atomics add in no fixed order), and bit for bit
+# where the two straight runs agree bit for bit
+BUDGET_STEPS, BUDGET_SPLIT_FACTOR = 200, 4.0
+# phase 25: entry()'s render through the kernels against the plain versions
+ENTRY_TOL = 1e-4
+
+
+def ansi_free(text: str) -> str:
+    import re
+
+    return re.sub(r"\x1b\[[0-9;]*m", "", text)
+
+
+def phase_evaluate(card: str):
+    """Phase 22: a GARF run of cli/train (EVAL_STEPS steps on phase 15's
+    scene and config) evaluated by cli/evaluate with optim.test_photo from
+    view EVAL_START: every output file must exist (quant_pose.txt,
+    transform_train.json, quant.txt, loss.txt, transform_val.json, each
+    view's rgb_<i>.npy) and the poses be finite; one line with each view's
+    PSNR, test-time iterations, stop reason and ms per iteration. Returns
+    the launch counts (GARF runs no kernel)."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import evaluate as cli_eval
+    from myc_nerfs_tpu_torch.cli import train as cli_train
+    from myc_nerfs_tpu_torch.evaluation.pose_export import load_transforms_json
+
+    with tempfile.TemporaryDirectory() as out:
+        args = nerf_cli_args("configs/barf/Easyship.yaml", "garf", EVAL_STEPS, out) + [
+            "--camera.noise=0.06", "--start_pose_correct_iter=0"]
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_train.main(args)
+        t_train = time.perf_counter() - t0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out_dir = cli_eval.main(args + ["--optim.test_photo",
+                                            f"--optim.test_iter={EVAL_TEST_ITER}",
+                                            f"--start={EVAL_START}"])
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        launches = read_launches()
+        views = list(range(EVAL_START, NERF_VIEWS))
+        names = (["quant_pose.txt", "transform_train.json", "quant.txt", "loss.txt",
+                  "transform_val.json"] + [f"rgb_{i}.npy" for i in views])
+        missing = [n for n in names if not os.path.exists(os.path.join(out_dir, n))]
+        finite = not missing and all(
+            bool(torch.isfinite(load_transforms_json(os.path.join(out_dir, n))[0]).all())
+            for n in ("transform_train.json", "transform_val.json"))
+        psnr = {} if missing else {int(a): float(b) for a, b in (
+            line.split() for line in open(os.path.join(out_dir, "quant.txt")))}
+        rot = [] if missing else [float(line.split()[1])
+                                  for line in open(os.path.join(out_dir, "quant_pose.txt"))]
+    tt = re.findall(r"view (\d+): test-time optimisation (\d+) iterations \((\w+)\), "
+                    r"loss ([0-9.e+-]+), ([0-9.]+) ms per iteration", ansi_free(buf.getvalue()))
+    per_view = " ".join(f"view{v}:psnr={psnr.get(int(v), float('nan')):.3f},tt_iters={n},"
+                        f"stop={r},tt_loss={float(l):.6f},ms_per_tt_iter={float(m):.3f}"
+                        for v, n, r, l, m in tt)
+    print(f"evaluate: cli/train --model=garf Easyship.yaml {EVAL_STEPS} steps ({t_train:.2f} s), "
+          f"cli/evaluate --optim.test_photo --optim.test_iter={EVAL_TEST_ITER} "
+          f"--start={EVAL_START} ({t_eval:.2f} s): mean rot err {np.rad2deg(np.mean(rot)) if rot else float('nan'):.3f} deg, "
+          f"{per_view} missing={missing or 'none'} poses_finite={finite} [{card}]", flush=True)
+    if missing or not finite:
+        fail(f"evaluate: outputs missing ({missing}) or poses not finite")
+    if len(tt) != len(views) or not all(np.isfinite(list(psnr.values()))):
+        fail(f"evaluate: {len(tt)} test-time runs for {len(views)} views, or a PSNR not finite")
+    return launches
+
+
+def chain_pose_gradient(trainer, scene, vi: int, n_rays: int, kernels: bool):
+    """d loss / d se3 of cli/pose_chain's test-time loss at se3 = 0 on view
+    vi, through the kernels or through the plain versions."""
+    from myc_nerfs_tpu_torch.cli import pose_chain as pc
+    from myc_nerfs_tpu_torch.evaluation.test_time_optim import make_ngp_pose_loss
+
+    model = trainer.model
+    model.use_encode_kernel = kernels
+    model.net.use_fully = kernels
+    try:
+        loss_fn = make_ngp_pose_loss(trainer.occ_cfg, trainer.rcfg, model, trainer.state.occ,
+                                     scene.poses[vi].cuda(), scene.intr[vi].cuda(),
+                                     scene.images[vi].cuda(), scene.H, scene.W,
+                                     world_scale=pc.SCALE, world_offset=pc.OFF,
+                                     bg=torch.ones(3, device="cuda"),
+                                     density_apply=model.density_raw)
+        idx = torch.randint(0, scene.H * scene.W, (n_rays,), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(vi))
+        x = torch.zeros((1, 6), device="cuda", requires_grad=True)
+        loss = loss_fn(x, idx)
+        (g,) = torch.autograd.grad(loss, x)
+    finally:
+        model.use_encode_kernel = True
+        model.net.use_fully = True
+    return float(loss), g
+
+
+def phase_pose_chain(card: str):
+    """Phase 23: cli/pose_chain (the slice's main path) at L16F2 width, cut
+    to CHAIN_ARGV: noisy cameras, GARF, the sim3 val-pose transfer, the
+    three NGP legs (brick3 L16F2, bf16, fused march, 8192 rays) and the
+    per-view test-time optimisation. Each leg's train PSNR must rise, its
+    PSNRs be finite, and the four NGP kernels run. Then d loss / d se3 of
+    the gt leg's view 0 through the kernels against the plain versions
+    (CHAIN_GRAD_TOL), and the cost of test-time optimisation's backward
+    kernel: fused_mlp_backward (need_dx, frozen weights: its dW is
+    discarded) at the loss's rgb-MLP rows, beside the forward kernel and the
+    iteration. Returns the launch counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import pose_chain as pc
+    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+
+    with tempfile.TemporaryDirectory() as out:
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = pc.main(CHAIN_ARGV + ["--out_dir", out])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    garf, legs = res["garf"], res["legs"]
+    print(f"pose_chain: cli/pose_chain {' '.join(CHAIN_ARGV)} (cuts of 50000 / 6000 / 256^2 / "
+          f"36 views / tt 1500), L16F2 brick3 bf16, 8192 rays: s={seconds:.2f} GARF "
+          f"rot {garf['rot_err_deg_init']:.3f} -> {garf['rot_err_deg']:.3f} deg (ratio "
+          f"{garf['rot_ratio']:.4f}), trans {garf['trans_err_init']:.4f} -> "
+          f"{garf['trans_err']:.4f} (ratio {garf['trans_ratio']:.4f}), "
+          f"{garf['wall_s'] / garf['steps'] * 1e3:.2f} ms per step; launches {launch_text(launches)} "
+          f"[{card}]", flush=True)
+    for tag, leg in legs.items():
+        tt = " ".join(f"{t['iters']}/{t['reason']}/{t['ms_per_iter']:.3f}ms" for t in leg["tt"])
+        print(f"pose_chain_ngp: {tag}: train_psnr {leg['train_psnr_first']:.3f} -> "
+              f"{leg['train_psnr']:.3f}, val_psnr {leg['val_psnr']:.3f} "
+              f"({' '.join(f'{p:.3f}' for p in leg['val_psnrs'])}), after tt "
+              f"{leg['val_psnr_tt']:.3f} ({' '.join(f'{p:.3f}' for p in leg['val_psnrs_tt'])}), "
+              f"tt iters/stop/ms per iter: {tt}, krays_s={leg['krays_s']:.1f}, "
+              f"train launches {launch_text(leg['train_launches'])}, eval launches "
+              f"{launch_text(leg['eval_launches'])} [{card}]", flush=True)
+    bad = [tag for tag, leg in legs.items()
+           if not leg["train_psnr"] > leg["train_psnr_first"]
+           or not np.isfinite(leg["val_psnrs"] + leg["val_psnrs_tt"]).all()]
+    if set(legs) != set(pc.LEGS) or bad:
+        fail(f"pose_chain: a leg is missing or its train PSNR did not rise: {bad}")
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS):
+        fail(f"pose_chain: an NGP kernel did not run: {launches}")
+    trainer, scene = legs["gt"]["trainer"], res["scene"]
+    n_rays = pc.parse_args(CHAIN_ARGV).tt_rays
+    l_k, g_k = chain_pose_gradient(trainer, scene, 0, n_rays, kernels=True)
+    l_p, g_p = chain_pose_gradient(trainer, scene, 0, n_rays, kernels=False)
+    err = float((g_k - g_p).norm() / g_p.norm())
+    # the backward kernel of one test-time iteration: the rgb MLP at
+    # tt_rays x n_compact rows, bf16; dW is a third of its products
+    rows = n_rays * trainer.rcfg.n_compact
+    widths = SHAPES["rgb"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((rows, widths[0]), device="cuda", generator=g).to(torch.bfloat16)
+    ws = [(torch.randn((a, b), device="cuda", generator=g) / a ** 0.5).to(torch.bfloat16)
+          for a, b in zip(widths[:-1], widths[1:])]
+    gy = torch.randn((rows, widths[-1]), device="cuda", generator=g).to(torch.bfloat16)
+    t_bwd = graph_ms(lambda: fm.fused_mlp_backward(x, ws, gy, need_dx=True))
+    with torch.no_grad():
+        t_fwd = graph_ms(lambda: fm.fused_mlp(x, ws))
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    tt_ms = float(np.mean([t["ms_per_iter"] for leg in legs.values() for t in leg["tt"]]))
+    print(f"pose_chain_grad: gt leg view 0, {n_rays} rays, se3 = 0: loss kernels {l_k:.6f} "
+          f"plain {l_p:.6f}; d loss / d se3 kernels {g_k.cpu().numpy().round(6).tolist()} plain "
+          f"{g_p.cpu().numpy().round(6).tolist()} |a-b|/|b|={err:.3e} limit={CHAIN_GRAD_TOL:.3e}; "
+          f"tt backward: fused_mlp_backward rgb {'x'.join(map(str, widths))} bf16 rows={rows} "
+          f"need_dx kernel_ms={t_bwd:.4f} (dW {macs} of {3 * macs} MACs per row, discarded) "
+          f"forward kernel_ms={t_fwd:.4f}; mean tt iteration {tt_ms:.3f} ms [{card}]",
+          flush=True)
+    if not err <= CHAIN_GRAD_TOL:
+        fail(f"pose_chain: the kernels' pose gradient differs from the plain one by {err}")
+    return launches
+
+
+def phase_tensorf_budget(card: str):
+    """Phase 24: cli/tensorf_budget on configs/tensorf/Coffee.txt at 128^2,
+    12 views: BUDGET_STEPS steps straight, twice, and split at
+    BUDGET_STEPS // 2 (--stop_at, then --resume). The split run's
+    parameters and val PSNR must equal the straight run's within
+    BUDGET_SPLIT_FACTOR times the two straight runs' spread (bit for bit
+    where that spread is 0). Returns the launch counts (TensoRF runs no
+    kernel)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import tensorf_budget as tb
+    from myc_nerfs_tpu_torch.core.checkpoint import read_tensorf_checkpoint
+
+    base = ["--steps", str(BUDGET_STEPS), "--val_every", str(BUDGET_STEPS // 2), "--size",
+            "128", "--views", "12", "--holdout", "4"]
+    runs = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        for name, extra in (("a", []), ("b", []), ("split", ["--stop_at",
+                                                             str(BUDGET_STEPS // 2)]),
+                            ("split", ["--resume"])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = tb.main(base + ["--ckpt", os.path.join(out, f"{name}.ckpt")] + extra)
+            runs[name] = res["log"][-1]
+        trees = {n: dict(flat_tree(read_tensorf_checkpoint(os.path.join(out, f"{n}.ckpt"))[0][
+            "params"])) for n in ("a", "b", "split")}
+        same_ab = all(np.array_equal(trees["a"][k], trees["b"][k]) for k in trees["a"])
+        same_split = all(np.array_equal(trees["a"][k], trees["split"][k]) for k in trees["a"])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+
+    def spread(x, y):
+        return max(float(np.abs(np.asarray(x[k], np.float64) - y[k]).max()
+                         / max(np.abs(y[k]).max(), 1e-30)) for k in y)
+
+    s_ab, s_split = spread(trees["b"], trees["a"]), spread(trees["split"], trees["a"])
+    p = {n: runs[n]["val_psnr"] for n in runs}
+    print(f"tensorf_budget: cli/tensorf_budget Coffee.txt 128^2 12 views (0, 4, 8 held out), "
+          f"{BUDGET_STEPS} steps in chunks of {BUDGET_STEPS // 2}: val_psnr straight "
+          f"{p['a']:.4f} / {p['b']:.4f}, split at {BUDGET_STEPS // 2} + --resume "
+          f"{p['split']:.4f}; params max |a-b|/max|b| straight-vs-straight {s_ab:.3e} "
+          f"(bit_for_bit={same_ab}), split-vs-straight {s_split:.3e} (bit_for_bit={same_split}) "
+          f"limit {BUDGET_SPLIT_FACTOR:.0f}x the first; s={seconds:.2f} [{card}]", flush=True)
+    if runs["split"]["step"] != BUDGET_STEPS or not all(np.isfinite(list(p.values()))):
+        fail(f"tensorf_budget: the split run ended at {runs['split']['step']} or a PSNR is "
+             "not finite")
+    if same_ab and not same_split:
+        fail("tensorf_budget: the straight runs agree bit for bit and the split one does not")
+    if not same_ab and not (s_split <= BUDGET_SPLIT_FACTOR * s_ab and
+                            abs(p["split"] - p["a"]) <= BUDGET_SPLIT_FACTOR
+                            * max(abs(p["b"] - p["a"]), 1e-3)):
+        fail(f"tensorf_budget: the split run differs from the straight one by {s_split} "
+             f"({p['split']} dB) against a spread of {s_ab} ({p['b']} dB)")
+    return launches
+
+
+def phase_umbrella(card: str):
+    """Phase 25: cli/test_scenes --synthetic (TensoRF demo_synthetic 50 steps
+    and --render_only, NGP demo_synthetic 50 steps and its test pass) in a
+    temporary folder: result/demo_tensorf and result/demo_ngp must hold
+    images; then entry()'s render of the flagship (16 levels, brick3, 1024
+    rays): rgb finite and not all background, brick_encode and fused_mlp
+    launched, and equal to the plain versions' render within ENTRY_TOL.
+    Returns the launch counts of both."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from myc_nerfs_tpu_torch.cli import test_scenes
+    from myc_nerfs_tpu_torch.entry import entry
+
+    configs = os.path.abspath("configs")
+    cwd = os.getcwd()
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        os.chdir(out)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                test_scenes.main(["--synthetic", "--configs_root", configs])
+            imgs = {d: sorted(os.listdir(os.path.join("result", d)))
+                    for d in ("demo_tensorf", "demo_ngp")}
+        finally:
+            os.chdir(cwd)
+    t_scenes = time.perf_counter() - t0
+    scenes = read_launches()
+    fn, (model, state, rays_o, rays_d) = entry()
+    reset_launches()
+    rgb = fn(model, state, rays_o, rays_d)
+    ran = read_launches()
+    model.use_encode_kernel = False
+    model.net.use_fully = False
+    plain = fn(model, state, rays_o, rays_d)
+    model.use_encode_kernel = True
+    model.net.use_fully = True
+    err = float((rgb - plain).abs().max())
+    print(f"umbrella: cli/test_scenes --synthetic s={t_scenes:.2f}: demo_tensorf "
+          f"{len(imgs['demo_tensorf'])} files, demo_ngp {len(imgs['demo_ngp'])} files; "
+          f"launches {launch_text(scenes)}; entry(): rgb {tuple(rgb.shape)} mean "
+          f"{float(rgb.mean()):.4f} min {float(rgb.min()):.4f}, kernels vs plain max_abs_err "
+          f"{err:.3e} limit {ENTRY_TOL:.0e}, launches {launch_text(ran)} [{card}]", flush=True)
+    if not (imgs["demo_tensorf"] and imgs["demo_ngp"]):
+        fail(f"umbrella: result images missing: {imgs}")
+    if not (bool(torch.isfinite(rgb).all()) and float((rgb - 1).abs().max()) > 1e-3):
+        fail("umbrella: entry()'s render is not finite or all background")
+    if not (ran["brick_encode"] > 0 and ran["fused_mlp"] > 0):
+        fail(f"umbrella: entry() did not launch brick_encode and fused_mlp: {ran}")
+    if not err <= ENTRY_TOL:
+        fail(f"umbrella: entry()'s render differs from the plain versions' by {err}")
+    return {k: scenes[k] + ran[k] for k in scenes}
+
 # where each kernel comes from: its source and the TPU kernel (file:line of
 # the function that reaches pl.pallas_call) it replaces; "also_replaces"
 # lists the other probe kernels of the same operation
@@ -2486,9 +2823,13 @@ def main() -> None:
     tensorf = phase_tensorf_train(smi)
     tensorf_step = phase_tensorf_step(smi)
     tensorf_variants = phase_tensorf_variants(smi)
+    evaluate = phase_evaluate(smi)
+    chain = phase_pose_chain(smi)
+    budget = phase_tensorf_budget(smi)
+    umbrella = phase_umbrella(smi)
     # the main-path runs (the BARF family's and TensoRF's launch no kernel)
     runs = (grid, render, train, nerf, flagship, hash_march, garf, barf, tensorf,
-            tensorf_step, *tensorf_variants)
+            tensorf_step, *tensorf_variants, evaluate, chain, budget, umbrella)
     kernels = []
     for name, (source, replaces, also) in KERNELS.items():
         if name in probe:

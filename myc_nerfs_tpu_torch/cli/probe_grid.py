@@ -6,7 +6,8 @@ The counterpart of the TPU probe scripts (scripts/probe_r2*.py), at their
 shapes: row gathers and scatter-adds of a [4096, 256] f32 table at 2^17
 indices, with a marginal rate from two sizes as probe_r2f_scale.py takes
 it (2^17 and 2^19 for the gather, 2^16 and 2^18 for the scatter); a bf16
-row gather; lane gathers at 8x128 and 2048x128; dynamic shared-memory
+row gather; lane gathers at the TPU probes' 8x128 and 2048x128 (launch
+overhead at these sizes) and at 65536x128 (96 MB moved); dynamic shared-memory
 scratch from 16 KB to 227 KB and a 228 KB one that must be refused; and
 the brick3 encode forward and backward at the Car config's geometry
 (configs/ngp/Car.py: 8 level groups, 52 MB of tables) for 262144 uniform
@@ -40,7 +41,7 @@ T, W = 4096, 256
 N_RATE = 1 << 17
 GATHER_SIZES = (1 << 17, 1 << 19)
 SCATTER_SIZES = (1 << 16, 1 << 18)
-LANE_SHAPES = ((8, 128), (2048, 128))
+LANE_SHAPES = ((8, 128), (2048, 128), (65536, 128))
 SCRATCH_KB = (16, 32, 64, 100, 200, 227)
 REFUSED_KB = 228        # above the 227 KB a Hopper block may have
 ENCODE_SAMPLES = 262144  # one 4096-ray x 64-sample chunk

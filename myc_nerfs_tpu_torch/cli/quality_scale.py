@@ -68,6 +68,9 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--val_every", type=int, default=0,
                     help="if > 0, print view 0's val PSNR at this cadence")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights, march jitter and grid draws (torch generator) "
+                         "and the ray batches (numpy default_rng)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -147,7 +150,7 @@ def main(argv=None):
     print(json.dumps({"event": "scene_ready", "wall_s": time.perf_counter() - t0,
                       "train_rays": int(tr_o.shape[0]), "device": card}), flush=True)
 
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     trainer = build_trainer(args, device, gen)
     start = 0
     if args.resume and args.ckpt and os.path.exists(args.ckpt):
@@ -165,7 +168,7 @@ def main(argv=None):
             out.append(float(psnr(torch.clamp(img, 0, 1).cpu(), scene.images[vi])))
         return out
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(args.seed)
     S = trainer.cfg.update_den_freq
     launches = (fm.fused_mlp_wide.launches, fm.fused_mlp_wide_backward.launches)
     it, m = start, None
@@ -193,7 +196,7 @@ def main(argv=None):
         "variant": args.variant, "fused": args.fused, "scene": args.scene,
         "aabb_scale": args.aabb_scale, "views": args.views, "size": args.size,
         "n_compact": args.n_compact, "n_coarse": args.n_coarse, "lr": args.lr,
-        "batch": args.batch, "steps": it,
+        "batch": args.batch, "seed": args.seed, "steps": it,
         "train_psnr": float(m["psnr"][-1]) if m is not None else None,
         "val_psnr": float(np.mean(ps)), "val_psnrs": ps, "wall_s": wall,
         "krays_s": args.batch * (it - start) / max(wall, 1e-9) / 1e3,

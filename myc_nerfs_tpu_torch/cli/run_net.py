@@ -35,6 +35,7 @@ from ..core.config import init_cfg, load_config
 from ..core.registry import (ENCODERS, LOSSES, NETWORKS, OPTIMS, SAMPLERS,
                              SCHEDULERS, build_from_cfg)
 from ..data.synthetic import OFF, SCALE  # synthetic scenes: world -> NGP box
+from ..evaluation.visualization import save_image
 from ..geom.camera_path import path_spherical
 from ..models.ori_nerf import OriginNeRFConfig, OriginNeRFModel
 from ..render.ngp_render import NGPRenderConfig
@@ -268,17 +269,6 @@ def path_pose(c2w_nerf) -> torch.Tensor:
     return c2w
 
 
-def _save_frame(path_stem: str, rgb: np.ndarray) -> None:
-    """rgb [H, W, 3] in [0, 1] -> <stem>.npy, and <stem>.png when PIL is
-    installed."""
-    np.save(path_stem + ".npy", rgb)
-    try:
-        from PIL import Image
-    except ImportError:
-        return
-    Image.fromarray((rgb * 255).astype(np.uint8)).save(path_stem + ".png")
-
-
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config-file", required=True)
@@ -331,7 +321,7 @@ def main(argv: Optional[list] = None):
         for i in range(len(c2ws)):
             rgb, _ = trainer.render_image(c2ws[i], intrs[i], H, W)
             arr = torch.clamp(rgb, 0, 1).cpu().numpy()
-            _save_frame(os.path.join(test_dir, f"r_{i}"), arr)
+            save_image(os.path.join(test_dir, f"r_{i}"), arr)
             if images is not None:
                 p = float(psnr(torch.from_numpy(arr), torch.from_numpy(images[i])))
                 psnrs.append(p)
@@ -347,8 +337,8 @@ def main(argv: Optional[list] = None):
         os.makedirs(frame_dir, exist_ok=True)
         for i, c2w in enumerate(path_spherical(cfg.get("render_frames", 8))):
             rgb, _ = trainer.render_image(path_pose(c2w), intr, H, W)
-            _save_frame(os.path.join(frame_dir, f"{i:03d}"),
-                        torch.clamp(rgb, 0, 1).cpu().numpy())
+            save_image(os.path.join(frame_dir, f"{i:03d}"),
+                       torch.clamp(rgb, 0, 1).cpu().numpy())
         print(f"render -> {frame_dir}")
     return out_dir
 

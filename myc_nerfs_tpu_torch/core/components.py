@@ -2,14 +2,14 @@
 
 The ``type=`` names that cli/run_net.py's build_trainer reads from the NGP
 configs. Each returns the port's config object, a plain dict of
-hyperparameters, or a callable loss.
+hyperparameters, a callable loss, or (NerfDataset) the loaded dataset.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from ..models.ngp import HashGridConfig, NGPModelConfig
-from .registry import ENCODERS, LOSSES, NETWORKS, OPTIMS, SAMPLERS, SCHEDULERS
+from .registry import DATASETS, ENCODERS, LOSSES, NETWORKS, OPTIMS, SAMPLERS, SCHEDULERS
 
 
 @ENCODERS.register_module("HashEncoder")
@@ -100,3 +100,19 @@ def build_expdecay(decay_start: int = 20000, decay_interval: int = 10000,
                    decay_base: float = 0.33, decay_end=None, **_ignored) -> dict:
     return {"decay_start": decay_start, "decay_interval": decay_interval,
             "decay_base": decay_base}
+
+
+@DATASETS.register_module("NerfDataset")
+def build_nerf_dataset(root_dir: str = "data", mode: str = "train",
+                       aabb_scale: int = 1, scale=None, offset=None,
+                       correct_pose=(-1, -1, 1), **_ignored):
+    """NerfDataset (jnerf dataset.py): train mode merges the train and val
+    JSONs; other modes read one split, images optional."""
+    from ..data import blender
+
+    if mode == "train":
+        return blender.load_ngp_train_data(root_dir, aabb_scale=aabb_scale, scale=scale,
+                                           offset=offset, correct_pose=tuple(correct_pose))
+    scene = blender.load_blender_split(root_dir, mode, require_images=False)
+    return blender.NGPDataset.from_scene(scene, aabb_scale=aabb_scale, scale=scale,
+                                         offset=offset, correct_pose=tuple(correct_pose))

@@ -21,6 +21,7 @@ import torch
 
 from ..geom import conventions
 from ..geom import rays as rays_lib
+from ..utils.color import linear_to_srgb
 
 NERF_SCALE = conventions.NERF_SCALE
 
@@ -39,12 +40,6 @@ class BlenderScene:
     intrinsics: Optional[Dict] = None
 
 
-def _linear_to_srgb(img: np.ndarray) -> np.ndarray:
-    img = np.clip(img, 0.0, 1.0)
-    return np.where(img <= 0.0031308, img * 12.92,
-                    1.055 * img ** (1.0 / 2.4) - 0.055)
-
-
 def _load_image(path: str, wh: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """An image as float32 in [0, 1]: PNG/JPEG through PIL, or the
     reference's packed fp16 RGBA ``.bin`` (int32 h, w header, linear
@@ -57,7 +52,7 @@ def _load_image(path: str, wh: Optional[Tuple[int, int]] = None) -> np.ndarray:
         h, w = struct.unpack("ii", raw[:8])
         arr = np.frombuffer(raw, np.float16, count=h * w * 4, offset=8)
         arr = arr.astype(np.float32).reshape(h, w, 4).copy()
-        arr[..., :3] = _linear_to_srgb(arr[..., :3])
+        arr[..., :3] = linear_to_srgb(torch.from_numpy(arr[..., :3])).numpy()
         return arr
     from PIL import Image
 
@@ -158,10 +153,8 @@ def barf_views(scene: BlenderScene, bg: float = 1.0
     convention, float32: images over the background ``bg``, world->cam
     poses invert(flip(diag(-1, -1, 1)) o c2w) (barf data/blender.py:80-92)."""
     images = blend_background(scene, bg).astype(np.float32)
-    c2w = np.asarray(scene.c2w, np.float32)[:, :3]
-    R = c2w[..., :3] * np.asarray([-1.0, -1.0, 1.0], np.float32)
-    R_inv = R.transpose(0, 2, 1)
-    poses = np.concatenate([R_inv, -R_inv @ c2w[..., 3:]], axis=-1)
+    c2w = np.asarray(scene.c2w, np.float32)
+    poses = conventions.parse_raw_camera_barf(torch.from_numpy(c2w)).numpy()
     intr = np.asarray([[scene.focal, 0, scene.W / 2.0], [0, scene.focal, scene.H / 2.0],
                        [0, 0, 1.0]], np.float32)
     return images, poses, np.broadcast_to(intr, (c2w.shape[0], 3, 3)).copy()

@@ -96,6 +96,18 @@ def query_density_grid(density_fn: Callable[[torch.Tensor], torch.Tensor], res: 
     return out.cpu().numpy().reshape(res + 1, res + 1, res + 1)
 
 
+def extract_mesh(density_fn: Callable[[torch.Tensor], torch.Tensor], res: int = 128,
+                 vrange: Tuple[float, float] = (-1.2, 1.2), thresh: float = 25.0,
+                 chunk: int = 16384, device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """The isosurface of density_fn at ``thresh`` over vrange^3: (verts
+    [V, 3] in world coordinates, tris [T, 3]) (extract_mesh.py:37-41, the
+    vertices / res - 0.5 centring generalised to the query range)."""
+    grid = query_density_grid(density_fn, res, vrange, chunk, device)
+    verts, tris = marching_tets(grid, thresh)
+    lo, hi = vrange
+    return verts / res * (hi - lo) + lo, tris
+
+
 def save_obj(path: str, verts: np.ndarray, tris: np.ndarray) -> None:
     """OBJ writer (replaces trimesh.export, extract_mesh.py:43-45)."""
     with open(path, "w") as f:

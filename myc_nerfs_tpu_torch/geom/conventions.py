@@ -1,9 +1,10 @@
 """Camera-pose conventions (counterpart of myc_nerfs_tpu/geom/conventions.py).
 
 - NGP: per-axis sign flips (correct_pose), t*scale+offset, row cycle
-  [1, 2, 0] (jnerf dataset.py:313-320), for the blender loader;
-- BARF, back from world->cam [3, 4] to Blender c2w for the pose export
-  (the parse is data/blender.py::barf_views);
+  [1, 2, 0] (jnerf dataset.py:313-327), for the blender loader, and its
+  inverse;
+- BARF: Blender c2w to world->cam [3, 4] (parse_raw_camera_barf, which
+  data/blender.py::barf_views uses) and back for the pose export;
 - TensoRF: Blender c2w to OpenCV axes (blender2opencv).
 """
 from __future__ import annotations
@@ -26,12 +27,32 @@ def matrix_nerf2ngp(matrix, scale, offset, correct_pose=(1, -1, -1)) -> np.ndarr
     return m[[1, 2, 0]]
 
 
+def matrix_ngp2nerf(matrix, scale, offset, correct_pose=(1, -1, -1)) -> np.ndarray:
+    """Inverse of :func:`matrix_nerf2ngp` (dataset.py:322-327): rows
+    cycled back, the sign flips undone, (t - offset) / scale."""
+    m = np.asarray(matrix, np.float32)[[2, 0, 1]]
+    cp = np.asarray(correct_pose, np.float32)
+    m = m * np.concatenate([cp, np.ones((1,), np.float32)])[None, :]
+    m[:, 3] = (m[:, 3] - np.asarray(offset, np.float32)) / np.float32(scale)
+    return m
+
+
+def _barf_flip(like: torch.Tensor) -> torch.Tensor:
+    flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0], dtype=like.dtype, device=like.device))
+    return make_pose(R=flip).expand(like.shape[:-2] + (3, 4))
+
+
+def parse_raw_camera_barf(pose_raw: torch.Tensor) -> torch.Tensor:
+    """Blender c2w [..., 3|4, 4] -> BARF world->cam [..., 3, 4]:
+    invert(flip(diag(-1, -1, 1)) o c2w) (barf data/blender.py:87-92)."""
+    return invert_pose(compose_pair(_barf_flip(pose_raw), pose_raw[..., :3, :]))
+
+
 def unparse_camera_barf(pose: torch.Tensor) -> torch.Tensor:
     """BARF world->cam [..., 3, 4] -> Blender c2w rows [..., 3, 4]:
-    flip(diag(-1, -1, 1)) o invert(pose), the inverse of the parse in
-    data/blender.py::barf_views (the pose export, barf.py:167-202)."""
-    flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0], dtype=pose.dtype, device=pose.device))
-    return compose_pair(make_pose(R=flip).expand(pose.shape[:-2] + (3, 4)), invert_pose(pose))
+    flip(diag(-1, -1, 1)) o invert(pose), the inverse of
+    parse_raw_camera_barf (the pose export, barf.py:167-202)."""
+    return compose_pair(_barf_flip(pose), invert_pose(pose))
 
 
 def blender2opencv(c2w_blender: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Ray generation (counterpart of myc_nerfs_tpu/geom/rays.py).
 
 Half-pixel-centre pixel grid (barf camera.py:234-252), per-pixel
-camera-frame directions and their world rays (tensorf ray_utils.py:81-153).
+camera-frame directions and their world rays (tensorf ray_utils.py:81-153),
+the NDC projection and points along rays (barf camera.py:254-277).
 """
 from __future__ import annotations
 
@@ -64,3 +65,29 @@ def get_rays_from_directions(directions: torch.Tensor, c2w: torch.Tensor
     rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     rays_o = c2w[:3, 3].expand(rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def convert_ndc(center: torch.Tensor, ray: torch.Tensor, intr: torch.Tensor,
+                near: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Origins moved to the near plane, then origins and directions
+    projected to NDC (cameras facing +z; camera.py:260-277). center, ray
+    [B, N, 3]; intr [B, 3, 3]."""
+    center = center + (near - center[..., 2:]) / ray[..., 2:] * ray
+    cx, cy, cz = center[..., 0], center[..., 1], center[..., 2]
+    rx, ry, rz = ray[..., 0], ray[..., 1], ray[..., 2]
+    scale_x = (intr[:, 0, 0] / intr[:, 0, 2])[:, None]
+    scale_y = (intr[:, 1, 1] / intr[:, 1, 2])[:, None]
+    center_ndc = torch.stack([scale_x * (cx / cz), scale_y * (cy / cz),
+                              1.0 - 2.0 * near / cz], dim=-1)
+    ray_ndc = torch.stack([scale_x * (rx / rz - cx / cz), scale_y * (ry / rz - cy / cz),
+                           2.0 * near / cz], dim=-1)
+    return center_ndc, ray_ndc
+
+
+def points_from_depth(center: torch.Tensor, ray: torch.Tensor, depth: torch.Tensor,
+                      multi_samples: bool = False) -> torch.Tensor:
+    """x = c + d v (camera.py:254-258); with ``multi_samples`` depth
+    [..., S, 1] gives S points per ray."""
+    if multi_samples:
+        center, ray = center[..., None, :], ray[..., None, :]
+    return center + ray * depth

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grid_sample import cell_base_index, grid_sample_3d, grid_sample_cm, line_sample_cm
-from ..ops.sh import eval_sh_bases
+from ..ops.sh import eval_sh
 from ..render.composite import raw2alpha
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))  # tensorBase.py:168
@@ -179,9 +179,8 @@ class MLPRender(DenseStack):
 
 def sh_render(pts, viewdirs, features):
     """SH shading (tensorBase.py:27-31): features are degree-2 SH coefficients."""
-    sh_mult = eval_sh_bases(2, viewdirs)[..., None, :]
     rgb_sh = features.reshape(features.shape[:-1] + (3, 9))
-    return torch.relu(torch.sum(sh_mult * rgb_sh, dim=-1) + 0.5)
+    return torch.relu(eval_sh(2, rgb_sh, viewdirs) + 0.5)
 
 
 def shade(cfg: TensoRFConfig, params, pts, viewdirs, app_feat):

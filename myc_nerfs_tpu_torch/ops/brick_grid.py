@@ -210,7 +210,8 @@ def paired_encode_reference(tables: List[torch.Tensor], positions: torch.Tensor,
                             compute_dtype=None) -> torch.Tensor:
     """Encode positions [..., 3] in [0, 1] -> [..., n_levels * F] with torch
     ops: the plain version of the brick_encode kernel, differentiable in the
-    tables through autograd.
+    tables through autograd, not in the positions (the JAX package's
+    stop_pos_grad, as the kernel's autograd function).
 
     ``compute_dtype=torch.bfloat16`` interpolates in bf16 while the tables
     stay f32, like the JAX package's bf16 path: table values, weights and
@@ -226,7 +227,7 @@ def paired_encode_reference(tables: List[torch.Tensor], positions: torch.Tensor,
     groups = groups or compute_level_groups(levels)
     F = cfg.n_features
     shape = positions.shape[:-1]
-    pos = positions.reshape(-1, 3)
+    pos = positions.detach().reshape(-1, 3)
     wdtype = compute_dtype or tables[0].dtype
     acc = torch.promote_types(wdtype, torch.float32)  # f64 for gradcheck
     per_level: List[Optional[torch.Tensor]] = [None] * levels.n_levels

@@ -1,6 +1,6 @@
 """Real spherical-harmonics bases, degree 0-4 (counterpart of myc_nerfs_tpu/ops/sh.py).
 
-tensorf models/sh.py:88-134 (``eval_sh_bases``) and the tcnn-style NGP
+tensorf models/sh.py:35-134 (``eval_sh_bases``, the contraction ``eval_sh``) and the tcnn-style NGP
 direction encoding (jnerf sh_encoder.py): ``degree``^2 components,
 zero-padded. Elementwise polynomial math in the same operation order as
 the JAX package.
@@ -52,6 +52,12 @@ def eval_sh_bases(deg: int, dirs: torch.Tensor) -> torch.Tensor:
                               C4[7] * xz * (xx - 3 * yy),
                               C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))]
     return torch.stack(comps, dim=-1)
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH coefficients sh [..., C, (deg+1)^2] contracted with the bases at
+    unit dirs [..., 3] -> [..., C] (tensorf sh.py:35-86)."""
+    return (sh * eval_sh_bases(deg, dirs)[..., None, :]).sum(-1)
 
 
 def sh_encode(dirs: torch.Tensor, degree: int = 4,

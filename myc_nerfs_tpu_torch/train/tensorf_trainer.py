@@ -34,6 +34,7 @@ import torch
 
 from ..geom import rays as rays_lib
 from ..models import tensorf as tf
+from ..evaluation.visualization import save_image
 from ..utils.metrics import mse2psnr
 from .ngp_trainer import adam_step, init_adam
 
@@ -304,17 +305,6 @@ def build_ray_store(poses: torch.Tensor, intr: torch.Tensor, H: int, W: int) -> 
     return torch.cat([center, d], dim=-1).reshape(-1, 6)
 
 
-def _save_image(path_stem: str, img: np.ndarray) -> None:
-    """img [H, W, 3] in [0, 1] -> <stem>.npy, and <stem>.png when PIL is
-    importable."""
-    np.save(path_stem + ".npy", img)
-    try:
-        from PIL import Image
-    except ImportError:
-        return
-    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path_stem + ".png")
-
-
 def evaluation(trainer: TensoRFTrainer, poses, intr, images, out_dir: str, prefix: str = "",
                chunk: int = 4096, compute_extra_metrics: bool = True,
                H: Optional[int] = None, W: Optional[int] = None, ray_fn=None):
@@ -342,9 +332,9 @@ def evaluation(trainer: TensoRFTrainer, poses, intr, images, out_dir: str, prefi
             psnrs.append(float(psnr_fn(rgb, gt)))
             if compute_extra_metrics:
                 ssims.append(float(ssim_fn(rgb, gt)))
-        _save_image(os.path.join(out_dir, f"{prefix}{i:03d}"), rgb.cpu().numpy())
+        save_image(os.path.join(out_dir, f"{prefix}{i:03d}"), rgb.cpu().numpy())
         dimg, _ = visualize_depth(depth.reshape(H, W).cpu().numpy())
-        _save_image(os.path.join(out_dir, f"{prefix}{i:03d}_depth"), dimg)
+        save_image(os.path.join(out_dir, f"{prefix}{i:03d}_depth"), dimg)
     if psnrs:
         with open(os.path.join(out_dir, "mean.txt"), "w") as f:
             f.write(f"psnr {float(np.mean(psnrs))}\n")
@@ -373,6 +363,6 @@ def evaluation_path(trainer: TensoRFTrainer, c2ws, H: int, W: int, focal: float,
         rgb = torch.clamp(rgb, 0, 1).reshape(H, W, 3).cpu().numpy()
         dimg, _ = visualize_depth(depth.reshape(H, W).cpu().numpy())
         frames.append(np.concatenate([rgb, dimg], axis=1))
-        _save_image(os.path.join(out_dir, f"{i:03d}"), rgb)
+        save_image(os.path.join(out_dir, f"{i:03d}"), rgb)
     write_video(os.path.join(out_dir, "video.mp4"), frames, fps=fps)
     return out_dir

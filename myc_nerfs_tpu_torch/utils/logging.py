@@ -75,3 +75,8 @@ class MetricWriter:
             f.write(f"{step} {value}\n")
         if self.tb is not None:
             self.tb.add_scalar(name, value, step)
+
+    def quant_line(self, filename: str, *values) -> None:
+        """A quant.txt / quant_pose.txt row (nerf.py:153-157, garf.py:224-228)."""
+        with open(os.path.join(self.out_dir, filename), "a") as f:
+            f.write(" ".join(str(v) for v in values) + "\n")

@@ -8,11 +8,17 @@
   SH, MLPs, composite), each stage timed alone with CUDA events.
 - ``wall_ms(fn)``: one ``fn()`` on the host clock without the profiler,
   the denominator of the device's busy share.
+- ``trace(dir)``: a torch.profiler window written as a Chrome trace;
+  ``Throughput``: items per second between two host reads of a probe
+  tensor; ``checkify_nan(fn)``: fn with a finite check of its floating
+  outputs that raises (each check is a host sync: off the main path).
 
 chip_smoke.py prints both for the Car config; PERF.md section 5 reads them.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable, Dict
 
@@ -99,3 +105,74 @@ def wall_ms(fn: Callable[[], object]) -> float:
     fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler over the block (CPU, and CUDA where available),
+    written to ``log_dir/trace.json`` (chrome://tracing, Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _host_read(probe) -> None:
+    """Wait for ``probe`` by reading one element of it on the host."""
+    float(torch.as_tensor(probe).reshape(-1)[0])
+
+
+class Throughput:
+    """Items per second between ``start(probe)`` and ``stop(probe)``; each
+    reads an element of its probe, so the device work queued before it is
+    done."""
+
+    def __init__(self):
+        self.items = 0
+        self.t0 = None
+
+    def start(self, probe=None) -> None:
+        if probe is not None:
+            _host_read(probe)
+        self.t0 = time.perf_counter()
+        self.items = 0
+
+    def add(self, n: int) -> None:
+        self.items += n
+
+    def stop(self, probe) -> float:
+        _host_read(probe)
+        dt = time.perf_counter() - self.t0
+        return self.items / dt if dt > 0 else 0.0
+
+
+def _floating(out):
+    if torch.is_tensor(out):
+        return [out] if out.is_floating_point() else []
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _floating(o)]
+    return []
+
+
+def checkify_nan(fn: Callable) -> Callable:
+    """fn whose floating tensor outputs (nested in tuples, lists, dicts)
+    must be finite: a NaN or inf raises FloatingPointError naming fn and the
+    output. In place of the reference's NaN asserts (barf model/base.py:
+    125-126)."""
+    name = getattr(fn, "__name__", repr(fn))
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        for i, t in enumerate(_floating(out)):
+            if not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(f"{name}: output {i} holds NaN or inf")
+        return out
+
+    return wrapper
