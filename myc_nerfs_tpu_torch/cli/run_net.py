@@ -35,7 +35,7 @@ from ..core.config import init_cfg, load_config
 from ..core.registry import (ENCODERS, LOSSES, NETWORKS, OPTIMS, SAMPLERS,
                              SCHEDULERS, build_from_cfg)
 from ..data.synthetic import OFF, SCALE  # synthetic scenes: world -> NGP box
-from ..evaluation.visualization import save_image
+from ..evaluation.visualization import save_image, write_video
 from ..geom.camera_path import path_spherical
 from ..models.ori_nerf import OriginNeRFConfig, OriginNeRFModel
 from ..render.ngp_render import NGPRenderConfig
@@ -335,11 +335,15 @@ def main(argv: Optional[list] = None):
         intr = torch.tensor([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1.0]])
         frame_dir = os.path.join(out_dir, "demo")
         os.makedirs(frame_dir, exist_ok=True)
+        frames = []
         for i, c2w in enumerate(path_spherical(cfg.get("render_frames", 8))):
             rgb, _ = trainer.render_image(path_pose(c2w), intr, H, W)
-            save_image(os.path.join(frame_dir, f"{i:03d}"),
-                       torch.clamp(rgb, 0, 1).cpu().numpy())
-        print(f"render -> {frame_dir}")
+            frames.append(torch.clamp(rgb, 0, 1).cpu().numpy())
+            save_image(os.path.join(frame_dir, f"{i:03d}"), frames[-1])
+        # the video beside the frames, as the JAX package writes it; without
+        # an encoder write_video says so and leaves its frames in demo/
+        video = write_video(os.path.join(out_dir, "demo.mp4"), frames, fps=8)
+        print(f"render -> {video or frame_dir}")
     return out_dir
 
 

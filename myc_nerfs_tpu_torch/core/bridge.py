@@ -15,7 +15,12 @@ the end of the file).
 - the optax.adam state: ``({"count", "mu", "nu"}, {"count"})``, mu and nu
   shaped like params (a checkpoint keys the tuple "0", "1"); for the pose
   corrections of the NeRF trainer, mu and nu are single [n_images, 6] arrays;
-- ``OccupancyState``: density_grid, bitfield, mean_density, ema_step.
+- ``OccupancyState``: density_grid, bitfield, mean_density, ema_step;
+- GroupTP params (parallel/spmd.GroupTPModel): ``{"table": {"dense":
+  [tables], "hashed": [G, rows, Wmax]}, "mlp": ...}``, the hashed group
+  tables stacked and zero-padded on the width axis; the port holds each
+  model-rank's groups as an unpadded list (``group_tp_unstack``,
+  ``group_tp_stack``).
 
 The port keeps parameters and moments as lists in the model's param_list()
 order; ``param_tree`` and ``param_leaves`` convert between the two.
@@ -163,6 +168,76 @@ def adam_tree(model, opt: AdamState) -> Dict[str, Any]:
     return {"0": {"count": opt.count, "mu": param_tree(model, opt.mu),
                   "nu": param_tree(model, opt.nu)},
             "1": {"count": opt.count}}
+
+
+def group_tp_stack(hashed: Sequence[Any]) -> np.ndarray:
+    """The hashed group tables (numpy or tensors, in group order) as the
+    JAX GroupTPModel stacks them: [G, rows, Wmax], each narrower group
+    zero-padded on the right."""
+    hashed = [_numpy(t) if torch.is_tensor(t) else np.asarray(t, np.float32) for t in hashed]
+    wmax = max(t.shape[1] for t in hashed)
+    return np.stack([np.pad(t, ((0, 0), (0, wmax - t.shape[1]))) for t in hashed])
+
+
+def group_tp_unstack(stacked: Any, widths: Sequence[int]) -> List[np.ndarray]:
+    """group_tp_stack's inverse: group g is stacked[g, :, :widths[g]]."""
+    stacked = np.asarray(stacked)
+    if stacked.dtype.name == "bfloat16":
+        stacked = stacked.astype(np.float32)
+    if stacked.shape[0] != len(widths):
+        raise ValueError(f"{stacked.shape[0]} stacked groups for {len(widths)} widths")
+    return [np.array(stacked[g, :, :w]) for g, w in enumerate(widths)]
+
+
+def _group_widths(model, ids: Sequence[int]) -> List[int]:
+    F = model.cfg.grid.n_features
+    return [len(model.groups.groups[i]) * F * 128 for i in ids]
+
+
+def load_group_tp_params(model, tree: Dict[str, Any]):
+    """Copy a JAX GroupTPModel params tree into this rank's GroupTPModel
+    (in place): the dense tables, this rank's hashed groups (their unpadded
+    columns) and the MLP weights."""
+    dense = _table_list(tree["table"]["dense"])
+    hashed = group_tp_unstack(tree["table"]["hashed"],
+                              _group_widths(model, model.hashed_groups))
+    by_group = dict(zip(model.hashed_groups, hashed))
+    srcs = list(dense) + [by_group[i] for i in model.local_groups]
+    mlp = tree["mlp"]["params"]
+    srcs += [mlp[name]["kernel"] for name in MLP_LAYERS]
+    params = model.param_list()
+    if len(srcs) != len(params):
+        raise ValueError(f"{len(srcs)} leaves for a model with {len(params)}")
+    for i, (dst, src) in enumerate(zip(params, srcs)):
+        _copy(dst, src, f"param {i}")
+    return model
+
+
+def group_tp_params_to_numpy(model) -> Dict[str, Any]:
+    """The JAX GroupTPModel params tree of a GroupTPModel, its hashed
+    tables gathered over the model axis (every rank of the model group must
+    call it)."""
+    tables = model.gathered_tables()
+    nd = len(model.dense_groups)
+    return {"table": {"dense": [_numpy(t) for t in tables[:nd]],
+                      "hashed": group_tp_stack(tables[nd:])},
+            "mlp": {"params": {name: {"kernel": _numpy(getattr(model.net, name))}
+                               for name in MLP_LAYERS}}}
+
+
+def group_tp_to_brick3(tree: Dict[str, Any], model) -> Dict[str, Any]:
+    """A JAX GroupTPModel params tree as the one-process brick3 model's
+    (the dense tables, then every hashed group unpadded, in group order);
+    ``model`` is either model (it supplies the grouping)."""
+    from ..ops import brick_grid as bg
+
+    levels = bg.compute_brick_levels(model.cfg.grid)
+    groups = bg.compute_level_groups(levels, group_size=3).groups
+    hashed_ids = [i for i, g in enumerate(groups) if not levels.dense[g[-1]]]
+    F = model.cfg.grid.n_features
+    hashed = group_tp_unstack(tree["table"]["hashed"],
+                              [len(groups[i]) * F * 128 for i in hashed_ids])
+    return {"table": list(_table_list(tree["table"]["dense"])) + hashed, "mlp": tree["mlp"]}
 
 
 def occupancy_from_numpy(tree: Dict[str, Any], device=None) -> OccupancyState:

@@ -1,9 +1,11 @@
-"""Entry point: one forward render step of the flagship Instant-NGP model
-(counterpart of __graft_entry__.py's ``_flagship`` and ``entry``).
+"""Entry points: one forward render step of the flagship Instant-NGP model,
+and a multi-rank train block (counterparts of __graft_entry__.py's
+``_flagship``, ``entry`` and ``dryrun_multichip``).
 
-    from myc_nerfs_tpu_torch.entry import entry
+    from myc_nerfs_tpu_torch.entry import entry, dryrun_multichip
     fn, args = entry()          # on the card; entry("cpu") on the CPU
     rgb = fn(*args)             # [1024, 3]
+    dryrun_multichip(4)         # 4 ranks, a 2 x 2 mesh; (4, "cpu") on the CPU
 
 The model is the full 16-level L16F2 ``brick3`` grid (HashGridConfig()'s
 defaults) with the two NGP MLPs through the fused kernels; the occupancy
@@ -63,7 +65,43 @@ def entry(device="cuda") -> Tuple[Callable, tuple]:
     return fn, (model, state, rays_o, rays_d)
 
 
+def dryrun_multichip(n_devices: int, device="cuda") -> float:
+    """A 4-step NGP train block on ``n_devices`` ranks (parallel/spmd.py):
+    a (n/2) x 2 mesh with the hashed brick3 groups split over "model"
+    (GroupTPModel) when n is even, else n x 1 with the tables replicated;
+    max(128, 16 n) rays per step over "data", every cell occupied, as the
+    JAX dry run. On the card one rank per card on NCCL when there are as
+    many, else the ranks share the card(s) under gloo. Prints one line and
+    returns the last step's loss."""
+    import numpy as np
+
+    from .parallel import mesh as mesh_lib
+    from .parallel import ranks, spmd
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("dryrun_multichip: torch.cuda.is_available() is false; call "
+                         "dryrun_multichip(n, 'cpu') to run on the CPU")
+    model = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
+    table_mode = "groups" if model > 1 else "replicated"
+    steps, n_rays = 4, max(128, n_devices * 16)
+    ro, rd, tg = spmd.ring_rays(steps * n_rays, seed=1)
+    xi = torch.rand((steps * n_rays, 1), generator=torch.Generator().manual_seed(7))
+    spec = {k: v.reshape(steps, n_rays, -1).numpy()
+            for k, v in dict(rays_o=ro, rays_d=rd, target=tg, xi=xi).items()}
+    spec.update(table_mode=table_mode, model_cfg=spmd.block_model_cfg(table_mode))
+    ranks.prebuild(device)
+    results = mesh_lib.spawn(ranks.ngp_block, n_devices, device, spec, model=model)
+    loss = results[0]["loss"][-1]
+    if not all(np.isfinite(r["loss"]).all() for r in results):
+        raise RuntimeError("NaN loss in multichip dry run")
+    print(f"dryrun_multichip({n_devices}): mesh {results[0]['shape']}, "
+          f"{steps}-step train block, loss {loss:.4f}")
+    return loss
+
+
 if __name__ == "__main__":
     f, a = entry()
     out = f(*a)
     print("entry ok:", tuple(out.shape), float(out.mean()))
+    dryrun_multichip(max(torch.cuda.device_count(), 1))

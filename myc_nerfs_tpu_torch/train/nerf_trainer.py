@@ -232,11 +232,15 @@ def make_loss(cfg: NeRFTrainConfig, images: torch.Tensor, poses_gt: torch.Tensor
 
 
 def make_train_step(cfg: NeRFTrainConfig, images: torch.Tensor, poses_gt: torch.Tensor,
-                    intr: torch.Tensor):
+                    intr: torch.Tensor, reduce_grads=None):
     """The train step over the dataset (as make_loss), on the state's
     device. Returns step(state, draws: StepDraws) -> (new state, {"loss",
     "psnr"} as device scalars). The parameters are updated in place (the
-    new state holds the same module)."""
+    new state holds the same module).
+
+    ``reduce_grads(grads) -> grads`` runs between the gradient and the two
+    Adams on the MLP's gradients followed, with pose refinement, by
+    se3_refine's (parallel/spmd.nerf_gradient_reduce: image-axis DP)."""
     loss_fn = make_loss(cfg, images, poses_gt, intr)
     sched, sched_pose = make_schedules(cfg)
 
@@ -249,6 +253,8 @@ def make_train_step(cfg: NeRFTrainConfig, images: torch.Tensor, poses_gt: torch.
             wrt = params + ([se3] if cfg.refine_pose else [])
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(wrt, grads)]
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         with torch.no_grad():
             updates, opt_state = adam_step(sched, BETAS, EPS, grads[:len(params)],
                                            state.opt_state)

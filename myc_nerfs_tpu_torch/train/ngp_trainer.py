@@ -17,6 +17,12 @@ The JAX package scans a block of steps in one program (a TPU dispatch
 workaround); here ``train_block`` is a Python loop over the steps. Each
 step's march jitter ``xi`` [B, 1] is an argument (the JAX package draws it
 as ``jax.random.uniform(key, (B, 1))``) or comes from a torch.Generator.
+
+With a ``mesh`` (parallel/mesh.py) each rank trains on its shard of the
+batch: the gradients are averaged over the mesh between ``backward`` and
+``update`` (so the clip, the fp16 emulation, the non-finite skip and Adam
+see the global gradient, as under GSPMD), the step's metrics are the global
+batch's, and every occupancy-grid update ends with rank 0's grid.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models.ngp import NGPModel, NGPModelConfig
+from ..parallel import mesh as mesh_lib
 from ..render import occupancy as occ
 from ..render.ngp_render import NGPRenderConfig, render_rays_ngp
 from ..utils.metrics import mse2psnr
@@ -233,8 +240,9 @@ class NGPTrainer:
                  camera_c2w: Optional[torch.Tensor] = None,
                  focal: Optional[torch.Tensor] = None,
                  image_wh: Optional[Tuple[int, int]] = None,
-                 loss_fn=None, model: Optional[torch.nn.Module] = None):
+                 loss_fn=None, model: Optional[torch.nn.Module] = None, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         self.rcfg = rcfg
         self.cfg = cfg
         self.generator = generator
@@ -263,6 +271,8 @@ class NGPTrainer:
         self.grid_update = occ.make_density_grid_update(
             self.occ_cfg, self.model.density_raw, cfg.n_grid_uniform,
             cfg.n_grid_nonuniform, aabb=rcfg.aabb)
+        if mesh is not None:
+            self.grid_update = self._replicated_grid_update(self.grid_update)
         self.n_rays_per_batch = cfg.n_rays_per_batch
         self._measured_samples = 0.0
         self._measure_count = 0
@@ -318,14 +328,49 @@ class NGPTrainer:
         self.state = st._replace(opt_state=opt_state, step=st.step + 1)
         return finite
 
+    # -- the mesh's hooks ---------------------------------------------------
+
+    def reduce_gradients(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean of each gradient over the mesh axis the model names for
+        it (``model.grad_axes()``; default "world": every rank holds the
+        parameter and sees its own rays, or the same rays as its model
+        group). One bucket per axis."""
+        axes = (self.model.grad_axes() if hasattr(self.model, "grad_axes")
+                else ["world"] * len(grads))
+        out = list(grads)
+        for axis in ("world", "data"):
+            idx = [i for i, a in enumerate(axes) if a == axis]
+            for i, g in zip(idx, mesh_lib.all_reduce_mean(self.mesh, [out[i] for i in idx],
+                                                          axis)):
+                out[i] = g
+        return out
+
+    def _replicated_grid_update(self, update):
+        """The grid update, then rank 0's grid on every rank. Every rank
+        draws the same samples from its (equally seeded) generator and
+        evaluates the same model, so the broadcast only guards the replicas
+        against a rounding that differs between cards."""
+        def replicated_update(state, *a, **k):
+            new = update(state, *a, **k)
+            return occ.OccupancyState(*mesh_lib.replicated(self.mesh, list(new)))
+        return replicated_update
+
     def _step(self, rays_o, rays_d, target, bg, xi) -> Dict[str, torch.Tensor]:
         with torch.enable_grad():
             loss, out = self.forward(rays_o, rays_d, target, bg, xi)
             grads = self.backward(loss)
-        finite = self.update(grads)
+        loss, n_samples = loss.detach(), out.n_samples
         with torch.no_grad():
-            psnr = mse2psnr(torch.mean((out.rgb - target) ** 2))
-        return {"loss": loss.detach(), "psnr": psnr, "n_samples": out.n_samples,
+            mse = torch.mean((out.rgb - target) ** 2)
+        if self.mesh is not None:
+            grads = self.reduce_gradients(grads)
+            # the global batch's metrics: its mean loss and mse, and its
+            # samples (summed over the data shards: the batch adaptation
+            # then reads one count on every rank and picks one rung)
+            loss, mse = mesh_lib.all_reduce_mean(self.mesh, [loss, mse], "world")
+            (n_samples,) = mesh_lib.all_reduce_sum(self.mesh, [n_samples], "data")
+        finite = self.update(grads)
+        return {"loss": loss, "psnr": mse2psnr(mse), "n_samples": n_samples,
                 "finite": (torch.ones((), dtype=torch.bool, device=loss.device)
                            if finite is None else finite)}
 
@@ -389,7 +434,10 @@ class NGPTrainer:
         """Resize the ray batch toward target_batch_size samples
         (update_batch_rays, density_grid_sampler.py:262-267), snapped down to
         the JAX package's quarter-octave ladder. Reads the measured sample
-        count from the device: one sync per call."""
+        count from the device: one sync per call. Under a mesh the count is
+        the global batch's (each step's n_samples is summed over the data
+        shards), so every rank picks the same rung and ``n_rays_per_batch``
+        is the global batch."""
         measured = max(float(self._measured_samples)
                        / max(self._measure_count, 1), 1.0)
         rays = int(self.n_rays_per_batch * self.cfg.target_batch_size / measured)

@@ -18,6 +18,13 @@ tensorf-myc train.py reconstruction()).
   counts restart, the learning-rate decay from lr_scale; the TV decay does
   not restart.
 
+With a ``mesh`` (parallel/mesh.py) each rank trains on its slice of every
+batch over "data" (``train`` draws the global ids and jitter and slices
+them): both gradient groups and the mse are averaged over the mesh before
+the two Adams; the regularisers, computed on the replicated params, are the
+same on every rank, so the mean leaves them exact; the events run on every
+rank on the same params and leave the buffers equal.
+
 The JAX package scans blocks of steps in one program (a TPU dispatch
 workaround); here a step is a Python call. A step's draws are an argument
 (``draws``) or come from a torch.Generator; a step syncs with the host only
@@ -35,6 +42,7 @@ import torch
 from ..geom import rays as rays_lib
 from ..models import tensorf as tf
 from ..evaluation.visualization import save_image
+from ..parallel import mesh as mesh_lib
 from ..utils.metrics import mse2psnr
 from .ngp_trainer import adam_step, init_adam
 
@@ -138,6 +146,17 @@ class PermutationSampler:
         return self.ids[self.curr:self.curr + self.batch]
 
 
+def shard_draws(mesh, draws, n_rays: int):
+    """This rank's slice over "data" of a batch's draws: every tensor whose
+    leading axis is the batch's, in a tensor or a (named) tuple of them."""
+    if torch.is_tensor(draws):
+        return mesh_lib.shard_batch(mesh, draws) if draws.shape[:1] == (n_rays,) else draws
+    if isinstance(draws, tuple):
+        parts = [shard_draws(mesh, d, n_rays) for d in draws]
+        return type(draws)(*parts) if hasattr(draws, "_fields") else tuple(parts)
+    return draws
+
+
 def base_draws(trainer, n_rays: int, generator: torch.Generator) -> torch.Tensor:
     """sample_ray's jitter [N, 1]."""
     return torch.rand((n_rays, 1), generator=generator, device=trainer.device)
@@ -153,8 +172,9 @@ class TensoRFTrainer:
 
     def __init__(self, model_cfg: tf.TensoRFConfig, cfg: TensoRFTrainConfig, aabb,
                  generator: Optional[torch.Generator] = None, device="cuda",
-                 extra_loss_fn=None, forward_fn=None, draw_fn=None):
+                 extra_loss_fn=None, forward_fn=None, draw_fn=None, mesh=None):
         self.model_cfg, self.cfg = model_cfg, cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.extra_loss_fn = extra_loss_fn
         self.forward_fn = forward_fn or (
@@ -201,7 +221,10 @@ class TensoRFTrainer:
             total, mse, _ = self.loss(rays, rgbs, draws)
             grads = torch.autograd.grad(total, spatial + net, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(spatial + net, grads)]
-        return grads[:len(spatial)], grads[len(spatial):], mse.detach()
+        mse = mse.detach()
+        if self.mesh is not None:
+            *grads, mse = mesh_lib.all_reduce_mean(self.mesh, grads + [mse], "world")
+        return grads[:len(spatial)], grads[len(spatial):], mse
 
     def train_step(self, rays, rgbs, draws) -> Dict[str, torch.Tensor]:
         """One SGD step; params are updated in place. Returns {"mse", "psnr"}
@@ -239,6 +262,8 @@ class TensoRFTrainer:
                 perm = torch.from_numpy(perm_src).to(self.device)
             ids = perm[sampler.curr:sampler.curr + n]
             d = draws(it) if draws is not None else self.draw_fn(self, n, gen)
+            if self.mesh is not None:
+                ids, d = mesh_lib.shard_batch(self.mesh, ids), shard_draws(self.mesh, d, n)
             metrics = self.train_step(all_rays[ids], all_rgbs[ids], d)
             if log_every and it % log_every == 0:
                 print(f"iter {it} psnr {float(metrics['psnr']):.2f}", flush=True)
