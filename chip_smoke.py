@@ -243,11 +243,15 @@ PSNR_RISE = 9.0
 # same contributions added by f32 atomics in another order (1e-5). Tables
 # through both kernels against the plain path: their gradient is the MLP's
 # dx propagated through the encode's weights, and the dx elements of the
-# two paths may each sit one bf16 rounding apart (the tensor cores sum in
+# two paths mostly sit within one bf16 rounding (the tensor cores sum in
 # another order than cuBLAS). The limit is computed in each run
 # (table_e2e_bounds): one bf16 ulp of every dx element, all of one sign,
-# propagated through the encode's weights, over the plain gradient's norm,
-# plus TABLE_GRAD_REL_TOL for the atomics
+# propagated through the plain encode backward, over the plain gradient's
+# norm, plus TABLE_GRAD_REL_TOL for the atomics. It bounds the norm, not
+# each element: a few thousand dx elements a batch (< 0.05%) sit 4 to ~480
+# ulps apart, and the count and the largest distance are printed. On an
+# H100 80GB HBM3 at 700 W the worst of 64 checks read 3.968e-03 on table 7
+# at 0.648 of its bound, ten elements carrying 98% of that difference
 GRAD_REL_TOL = 2.0 ** -7
 TABLE_GRAD_REL_TOL = 1e-5
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
@@ -979,6 +983,7 @@ def phase_train(card: str):
     names = [f"table{i}" for i in range(n_tables)] + list(model.net.LAYERS)
     full = {n: rel(a, b) for n, a, b in zip(names, kern[0], plain)}
     bounds = table_e2e_bounds(trainer, kern[1], plain_seen, plain[:n_tables])
+    dx = dx_ulps(kern[1], plain_seen)
     limit = dict(zip(names, bounds + [GRAD_REL_TOL] * len(model.net.LAYERS)))
     ok = all(v <= limit[n] for n, v in full.items())
     ok &= split_ok(split)
@@ -986,7 +991,9 @@ def phase_train(card: str):
           + " ".join(f"{n}={v:.2e}" for n, v in full.items())
           + " tol tables (this batch's bound: one bf16 ulp of each dx element through the "
           "encode's weights, + 1e-5) " + " ".join(f"{b:.2e}" for b in bounds)
-          + f" mlp={GRAD_REL_TOL:.2e}; tables, "
+          + f" (reading / bound max {max(full[n] / b for n, b in zip(names, bounds)):.3f}; "
+          f"dx elements more than one ulp apart {dx['over']} of {dx['n']}, at most "
+          f"{dx['max']:.1f} ulps) mlp={GRAD_REL_TOL:.2e}; tables, "
           f"encode kernels vs plain encode under the MLP kernels: "
           + " ".join(f"table{i}={v:.2e}" for i, v in enumerate(split["tables"]))
           + f" tol {TABLE_GRAD_REL_TOL:.2e}; {split_fields(split)}", flush=True)
@@ -1007,23 +1014,37 @@ def table_e2e_bounds(trainer, kern_seen: dict, plain_seen: dict, plain_tables) -
     """Each table's limit on |a-b|/|b| between its gradient through the
     kernels and through the plain path, computed from this batch: the
     table gradient is the encode's weights applied to the MLP's dx, and
-    the two paths' dx elements may each sit one bf16 rounding apart, so
+    the two paths' dx elements are taken to sit one bf16 rounding apart, so
     |a-b| <= |E^T u| elementwise with u one bf16 ulp of each dx element
     (the larger of the two paths'; the weights are >= 0), propagated by the
-    encode backward kernel; over the plain gradient's norm, plus
-    TABLE_GRAD_REL_TOL for the atomics' order."""
-    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+    plain encode backward (not the kernel under test); over the plain
+    gradient's norm, plus TABLE_GRAD_REL_TOL for the atomics' order. The
+    premise does not hold for every element (dx_ulps counts those that
+    break it): the limit bounds the norm, not each element."""
+    from myc_nerfs_tpu_torch.ops import brick_grid as bg
 
     model = trainer.model
     if not torch.equal(kern_seen["pos"], plain_seen["pos"]):
         fail("train: the kernel and plain paths marched different positions")
     u = bf16_ulp(torch.maximum(kern_seen["g"].float().abs(), plain_seen["g"].float().abs()))
-    geo = (model.cfg.grid, model.levels, model.groups, model.compute_dtype)
     with torch.no_grad():
-        spread = ge.brick_encode_backward([t.detach() for t in model.tables], kern_seen["pos"],
-                                          u.to(torch.bfloat16), *geo)
+        spread = bg.paired_encode_backward_reference(
+            [t.detach() for t in model.tables], kern_seen["pos"], u.to(torch.bfloat16),
+            model.cfg.grid, model.levels, model.groups, model.compute_dtype)
     return [float(s.norm()) / max(float(b.float().norm()), 1e-30) + TABLE_GRAD_REL_TOL
             for s, b in zip(spread, plain_tables)]
+
+
+def dx_ulps(kern_seen: dict, plain_seen: dict) -> dict:
+    """How far table_e2e_bounds' premise holds: the dx elements of the
+    kernel and plain paths more than one bf16 ulp apart (``over``, of
+    ``n``) and the largest distance in ulps (``max``)."""
+    gk, gp = kern_seen["g"].float(), plain_seen["g"].float()
+    u = bf16_ulp(torch.maximum(gk.abs(), gp.abs()))
+    d = (gk - gp).abs()
+    ulps = torch.where(u > 0, d / torch.where(u > 0, u, torch.ones_like(u)),
+                       torch.zeros_like(d))
+    return {"over": int((d > u).sum()), "max": float(ulps.max()), "n": gk.numel()}
 
 
 def rel(a, b) -> float:
@@ -1138,9 +1159,7 @@ def phase_split(card: str, train_ctx) -> None:
             n = len(trainer.model.tables)
             split["e2e"] = [rel(a, c) for a, c in zip(kern[0][:n], plain[:n])]
             split["bound"] = table_e2e_bounds(trainer, kern[1], plain_seen, plain[:n])
-            gk, gp = kern[1]["g"].float(), plain_seen["g"].float()
-            split["dx_over_ulp"] = int(((gk - gp).abs() > bf16_ulp(
-                torch.maximum(gk.abs(), gp.abs()))).sum())
+            split["dx"] = dx_ulps(kern[1], plain_seen)
             results.append(split)
             print(f"split: step {trainer.state.step} batch {b} rays {rays_o.shape[0]}: "
                   f"tables, encode kernels vs plain encode: "
@@ -1148,8 +1167,8 @@ def phase_split(card: str, train_ctx) -> None:
                   + "; " + split_fields(split) + "; both kernels vs plain path "
                   + " ".join(f"{v:.2e}" for v in split["e2e"]) + " bound "
                   + " ".join(f"{v:.2e}" for v in split["bound"])
-                  + f", dx elements more than one bf16 ulp apart {split['dx_over_ulp']} "
-                  f"of {gk.numel()}", flush=True)
+                  + f", dx elements more than one bf16 ulp apart {split['dx']['over']} "
+                  f"of {split['dx']['n']} (at most {split['dx']['max']:.1f} ulps)", flush=True)
         return m
 
     trainer.train_block = checked_block
@@ -1168,7 +1187,9 @@ def phase_split(card: str, train_ctx) -> None:
           f"{w['bound'][t]:.3e}), bounds min {min(min(s['bound']) for s in results):.3e}, "
           f"reading / bound max "
           f"{max(v / b for s in results for v, b in zip(s['e2e'], s['bound'])):.3f}, "
-          f"breaching {len(over)} [{card}]", flush=True)
+          f"breaching {len(over)}; dx elements more than one ulp apart per check at most "
+          f"{max(s['dx']['over'] for s in results)}, at most "
+          f"{max(s['dx']['max'] for s in results):.1f} ulps [{card}]", flush=True)
     if bad:
         fail(f"encode kernels vs plain encode breach {TABLE_GRAD_REL_TOL} at checks {bad}")
     if over:
@@ -2897,7 +2918,8 @@ def phase_multichip(card: str):
     full width on MULTICHIP_RANKS spawned ranks (mesh.spawn; the kernels
     were built by phase 2, the ranks load them), each against one process on
     this card over the whole batch (parallel/ranks.py's programs on
-    mesh.single_mesh). The DP render must equal, bit for bit, one process's
+    mesh.single_mesh). Every rank's occupancy grid after an update must be
+    rank 0's bit for bit. The DP render must equal, bit for bit, one process's
     render of the same trained state (the gathered tables and the grid).
     Returns the launch counts of every rank's ngp and render runs."""
     import argparse
@@ -2914,6 +2936,7 @@ def phase_multichip(card: str):
     args = argparse.Namespace(ranks=MULTICHIP_RANKS, data=data, model=model,
                               steps=MULTICHIP_STEPS, small=False)
     legs = mc.build_legs(args)
+    legs[0][3]["grid_update"] = True  # one occupancy update after the ngp block
     backend, _, line = mesh_lib.choose_backend("cuda", MULTICHIP_RANKS)
     t0 = time.perf_counter()
     results = mesh_lib.spawn(ranks.run_legs, MULTICHIP_RANKS, "cuda", legs, model=model,
@@ -2949,8 +2972,14 @@ def phase_multichip(card: str):
               f"ranks on {backend}) vs one process {ref_ms:.3f} [{card}]", flush=True)
         ok &= (loss_rel <= tol["loss"] and rel[worst] <= tol["params"] and rep and loc
                and finite)
-    # the DP render against one process's render of the same trained state
+    # the occupancy update runs with no collective: every rank's grid must
+    # come out rank 0's
     r0 = results[0]["ngp"]
+    grids = all(r["ngp"]["grid_checksum"] == r0["grid_checksum"] for r in results)
+    print(f"multichip: occupancy grid after an update on every rank, no collective: "
+          f"equal to rank 0's bit for bit {grids} [{card}]", flush=True)
+    ok &= grids
+    # the DP render against one process's render of the same trained state
     spec = legs[0][3]
     rcfg, ro, rd = spec["render"]
     state_model = NGPModel(spec["model_cfg"], device="cuda")
@@ -2983,7 +3012,8 @@ def phase_multichip(card: str):
     if not all(r["ngp"]["launches"][k] > 0 for r in results for k in ranks.KERNEL_COUNTERS):
         fail(f"multichip: an NGP kernel did not launch on every rank: {per_rank}")
     if not ok:
-        fail("multichip: a leg disagrees with one process or its replicas differ")
+        fail("multichip: a leg disagrees with one process, its replicas differ, or the "
+             "ranks' occupancy grids differ")
     if not same:
         fail("multichip: the DP render differs from one process's render of the same state")
     return launches

@@ -193,18 +193,11 @@ def ngp_block(mesh, spec: dict) -> dict:
         trainer._update_batch_rays()
     model = trainer.model
     if spec.get("grid_update"):
-        before = trainer.grid_update
-        # the update without the trainer's broadcast: is each rank's grid
-        # rank 0's on its own?
-        raw = spmd.occ.make_density_grid_update(trainer.occ_cfg, model.density_raw,
-                                                trainer.cfg.n_grid_uniform,
-                                                trainer.cfg.n_grid_nonuniform,
-                                                aabb=trainer.rcfg.aabb)
-        gen = torch.Generator(device=mesh.device).manual_seed(5)
-        out["grid_checksum"] = checksum(list(raw(trainer.state.occ, gen))[:3])
-        trainer.state = trainer.state._replace(occ=before(
+        # no collective: each rank draws the same samples and evaluates
+        # the same model, so its grid must come out rank 0's on its own
+        trainer.state = trainer.state._replace(occ=trainer.grid_update(
             trainer.state.occ, torch.Generator(device=mesh.device).manual_seed(5)))
-        out["grid_checksum_placed"] = checksum(list(trainer.state.occ)[:3])
+        out["grid_checksum"] = checksum(list(trainer.state.occ)[:3])
     if spec.get("render") is not None:
         rcfg, ro, rd = spec["render"]
         reset_launches()
@@ -253,7 +246,7 @@ def group_tp_encode(mesh, spec: dict) -> dict:
 
 def tensorf_block(mesh, spec: dict) -> dict:
     """spmd.multichip_tensorf_train_block on spec's rays / rgbs / draws
-    (mcfg, tcfg, aabb, seed, params, replicate as it takes them), a
+    (mcfg, tcfg, aabb, seed, params as it takes them), a
     checksum of the params after every step, and with spec["render"]
     (rays [N, 6]) multichip_tensorf_render of the trained params."""
     from ..core import bridge
@@ -269,8 +262,7 @@ def tensorf_block(mesh, spec: dict) -> dict:
     metrics, trainer = spmd.multichip_tensorf_train_block(
         mesh, spec["rays"], spec["rgbs"], spec["draws"], mcfg=spec.get("mcfg"),
         tcfg=spec.get("tcfg"), aabb=spec.get("aabb"), seed=spec.get("seed", 0),
-        replicate=spec.get("replicate", False), params=spec.get("params"),
-        on_step=on_step)
+        params=spec.get("params"), on_step=on_step)
     out = {"mse": [float(v) for v in metrics["mse"]], "checksums": sums,
            "train_s": sum(step_s.times), "step_s": step_s.times,
            "params": bridge.tensorf_params_tree(trainer.params)}
@@ -338,7 +330,6 @@ def nerf_block(mesh, spec: dict) -> dict:
     if spec.get("params") is not None:
         bridge.load_params(state.params, spec["params"])
         state = state._replace(pose_noise=torch.from_numpy(spec["pose_noise"]).to(dev))
-    replicate = spec.get("replicate", False)
     sums, step_s = [], _StepClock(dev)
 
     def on_step(st):
@@ -348,9 +339,8 @@ def nerf_block(mesh, spec: dict) -> dict:
 
     state, metrics = spmd.multichip_nerf_train_block(
         mesh, cfg, state, images, poses, intr, draws_from_numpy(spec["draws"], dev),
-        replicate=replicate,
         on_step=on_step)
-    se3 = state.se3_refine if replicate else mesh_lib.gather_rows(mesh, state.se3_refine)
+    se3 = mesh_lib.gather_rows(mesh, state.se3_refine)
     return {**_place(mesh), "loss": [float(v) for v in metrics["loss"]],
             "se3_refine": _numpy(se3), "checksums": sums,
             "train_s": sum(step_s.times), "step_s": step_s.times,

@@ -218,16 +218,14 @@ class LevelTPModel:
 # ---------------------------------------------------------------------------
 
 
-def place_ngp_state(mesh, state: ngp_trainer.NGPTrainState, shard_table: bool = False,
-                    table_mode: Optional[str] = None) -> ngp_trainer.NGPTrainState:
+def place_ngp_state(mesh, state: ngp_trainer.NGPTrainState,
+                    table_mode: str = "replicated") -> ngp_trainer.NGPTrainState:
     """Make the train state one program's across the mesh: every replicated
     parameter, Adam moment and the occupancy grid take rank 0's values
     ('replicated', and the dense tables and MLPs of 'groups'); a
     GroupTPModel's local tables and moments take those of the rank at data
     index 0 of their data group ('groups'). The model's parameters are
     written in place. 'rows' and 'levels' raise (NOT_PORTED)."""
-    if table_mode is None:
-        table_mode = "rows" if shard_table else "replicated"
     if table_mode in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[table_mode])
     if table_mode not in ("replicated", "groups"):
@@ -431,12 +429,10 @@ def place_tensorf(mesh, trainer) -> None:
 
 
 def multichip_tensorf_train_block(mesh, rays, rgbs, draws, mcfg=None, tcfg=None, aabb=None,
-                                  seed: int = 0, replicate: bool = False, params=None,
-                                  on_step=None):
+                                  seed: int = 0, params=None, on_step=None):
     """Ray-axis DP for TensoRF: S = rays.shape[0] steps on rays [S, B, 6],
     rgbs [S, B, 3] and the sample jitter [S, B, 1] of the global batch;
-    each rank takes its slice of B over "data" (all of it with
-    ``replicate``, the same program on every rank). Factor grids and MLP are
+    each rank takes its slice of B over "data". Factor grids and MLP are
     replicated; ``TensoRFTrainer(mesh=...)`` averages both gradient groups
     over "data" before the two Adams. Configs default to
     tensorf_block_configs; ``params`` is a JAX-layout numpy tree;
@@ -450,14 +446,13 @@ def multichip_tensorf_train_block(mesh, rays, rgbs, draws, mcfg=None, tcfg=None,
     trainer = tt.TensoRFTrainer(mcfg or d_mcfg, tcfg or d_tcfg,
                                 d_aabb if aabb is None else aabb,
                                 torch.Generator(device=mesh.device).manual_seed(seed),
-                                device=mesh.device, mesh=None if replicate else mesh)
+                                device=mesh.device, mesh=mesh)
     if params is not None:
         trainer.params = bridge.load_tensorf_params(trainer.params, params)
         trainer._rebuild(1.0)
     place_tensorf(mesh, trainer)
     rays, rgbs, draws = (_tensor(a, mesh.device) for a in (rays, rgbs, draws))
-    if not replicate:
-        rays, rgbs, draws = mesh_lib.shard_batch(mesh, rays, rgbs, draws, axis=1)
+    rays, rgbs, draws = mesh_lib.shard_batch(mesh, rays, rgbs, draws, axis=1)
     steps = []
     for s in range(S):
         steps.append(trainer.train_step(rays[s], rgbs[s], draws[s]))
@@ -468,7 +463,7 @@ def multichip_tensorf_train_block(mesh, rays, rgbs, draws, mcfg=None, tcfg=None,
 
 @torch.no_grad()
 def multichip_tensorf_render(mesh, model_cfg, geom, params, buffers, rays,
-                             white_bg: bool = True, forward_fn=None):
+                             white_bg: bool = True):
     """TensoRF's eval render with the rays split over "data" and rank 0's
     params and buffers on every rank (placed in place). Returns (rgb [N, 3],
     depth [N]) of the whole batch on every rank."""
@@ -481,11 +476,8 @@ def multichip_tensorf_render(mesh, model_cfg, geom, params, buffers, rays,
     for k, v in zip(keys, mesh_lib.replicated(mesh, [buffers[k] for k in keys])):
         buffers[k] = v
     rays = mesh_lib.shard_batch(mesh, _tensor(rays, mesh.device))
-    if forward_fn is not None:
-        out = forward_fn(model_cfg, geom, params, buffers, rays, None, white_bg)
-    else:
-        out = tf_m.tensorf_forward(model_cfg, geom, params, buffers, rays, None,
-                                   white_bg=white_bg)
+    out = tf_m.tensorf_forward(model_cfg, geom, params, buffers, rays, None,
+                               white_bg=white_bg)
     return mesh_lib.gather_rows(mesh, out.rgb_map), mesh_lib.gather_rows(mesh, out.depth_map)
 
 
@@ -494,11 +486,11 @@ def multichip_tensorf_render(mesh, model_cfg, geom, params, buffers, rays,
 # ---------------------------------------------------------------------------
 
 
-def _place_nerf_state(mesh, state, n_images: int, replicate: bool = False):
+def _place_nerf_state(mesh, state, n_images: int):
     """Image-axis placement: the MLP, its Adam state and the step are rank
     0's on every rank; the per-image leaves (se3_refine, pose_noise and the
     pose Adam's moments, [n_images, 6]) are rank 0's rows of this rank's
-    images (all of them with ``replicate``)."""
+    images."""
     params = state.params.param_list()
     _broadcast_into(mesh, params, "world")
     opt = state.opt_state
@@ -508,10 +500,9 @@ def _place_nerf_state(mesh, state, n_images: int, replicate: bool = False):
     pose = state.opt_state_pose
     se3, noise, pmu, pnu, pcount = mesh_lib.replicated(
         mesh, [state.se3_refine, state.pose_noise, pose.mu[0], pose.nu[0], pose.count])
-    if not replicate:
-        if se3.shape[0] != n_images:
-            raise ValueError(f"{se3.shape[0]} pose rows for {n_images} images")
-        se3, noise, pmu, pnu = mesh_lib.shard_batch(mesh, se3, noise, pmu, pnu)
+    if se3.shape[0] != n_images:
+        raise ValueError(f"{se3.shape[0]} pose rows for {n_images} images")
+    se3, noise, pmu, pnu = mesh_lib.shard_batch(mesh, se3, noise, pmu, pnu)
     return state._replace(opt_state=opt, step=moved[-1], se3_refine=se3.contiguous(),
                           pose_noise=noise.contiguous(),
                           opt_state_pose=AdamState(count=pcount, mu=[pmu.contiguous()],
@@ -537,30 +528,26 @@ def nerf_gradient_reduce(mesh, n_params: int):
 
 
 def multichip_nerf_train_block(mesh, cfg, state, images, poses, intr, draws: Sequence,
-                               replicate: bool = False, on_step=None):
+                               on_step=None):
     """Image-axis DP for BARF/GARF: images / poses / intrinsics and the
     per-image se(3) corrections split over "data" (each rank refines its
     own cameras; pose gradients never cross ranks), the MLP replicated and
     its gradients averaged. ``draws``: each step's global StepDraws (every
-    rank slices its images' rows). ``replicate`` runs the one-process
-    program on every rank; ``on_step(state)`` runs after every step.
+    rank slices its images' rows); ``on_step(state)`` runs after every
+    step.
     Returns (this rank's state, per-step metrics {"loss", "psnr"} [S] of
     the global batch)."""
     from ..train import nerf_trainer as nt
 
     n_images = images.shape[0]
-    state = _place_nerf_state(mesh, state, n_images, replicate)
-    if not replicate:
-        images, poses, intr = mesh_lib.shard_batch(mesh, images, poses, intr)
-    step = nt.make_train_step(cfg, images, poses, intr,
-                              reduce_grads=None if replicate else nerf_gradient_reduce(
-                                  mesh, len(state.params.param_list())))
+    state = _place_nerf_state(mesh, state, n_images)
+    images, poses, intr = mesh_lib.shard_batch(mesh, images, poses, intr)
+    step = nt.make_train_step(cfg, images, poses, intr, reduce_grads=nerf_gradient_reduce(
+        mesh, len(state.params.param_list())))
     losses = []
     for d in draws:
-        state, m = step(state, d if replicate else slice_draws(mesh, d))
-        loss = m["loss"] if replicate else mesh_lib.all_reduce_mean(mesh, [m["loss"]],
-                                                                    "world")[0]
-        losses.append(loss)
+        state, m = step(state, slice_draws(mesh, d))
+        losses.append(mesh_lib.all_reduce_mean(mesh, [m["loss"]], "world")[0])
         if on_step is not None:
             on_step(state)
     loss = torch.stack(losses)

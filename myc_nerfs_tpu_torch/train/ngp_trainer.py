@@ -21,8 +21,11 @@ as ``jax.random.uniform(key, (B, 1))``) or comes from a torch.Generator.
 With a ``mesh`` (parallel/mesh.py) each rank trains on its shard of the
 batch: the gradients are averaged over the mesh between ``backward`` and
 ``update`` (so the clip, the fp16 emulation, the non-finite skip and Adam
-see the global gradient, as under GSPMD), the step's metrics are the global
-batch's, and every occupancy-grid update ends with rank 0's grid.
+see the global gradient, as under GSPMD) and the step's metrics are the
+global batch's. The occupancy-grid update needs no collective: every rank
+draws the same samples from its equally seeded generator and evaluates the
+same replicated model, so the grids stay equal (checked in the tests and
+by chip_smoke's multichip phase).
 """
 from __future__ import annotations
 
@@ -271,8 +274,6 @@ class NGPTrainer:
         self.grid_update = occ.make_density_grid_update(
             self.occ_cfg, self.model.density_raw, cfg.n_grid_uniform,
             cfg.n_grid_nonuniform, aabb=rcfg.aabb)
-        if mesh is not None:
-            self.grid_update = self._replicated_grid_update(self.grid_update)
         self.n_rays_per_batch = cfg.n_rays_per_batch
         self._measured_samples = 0.0
         self._measure_count = 0
@@ -344,16 +345,6 @@ class NGPTrainer:
                                                           axis)):
                 out[i] = g
         return out
-
-    def _replicated_grid_update(self, update):
-        """The grid update, then rank 0's grid on every rank. Every rank
-        draws the same samples from its (equally seeded) generator and
-        evaluates the same model, so the broadcast only guards the replicas
-        against a rounding that differs between cards."""
-        def replicated_update(state, *a, **k):
-            new = update(state, *a, **k)
-            return occ.OccupancyState(*mesh_lib.replicated(self.mesh, list(new)))
-        return replicated_update
 
     def _step(self, rays_o, rays_d, target, bg, xi) -> Dict[str, torch.Tensor]:
         with torch.enable_grad():

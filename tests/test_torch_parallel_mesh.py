@@ -121,8 +121,6 @@ def test_not_ported_table_modes_raise():
     for mode in ("rows", "levels"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spmd.place_ngp_state(tmesh.single_mesh(), None, table_mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmd.place_ngp_state(tmesh.single_mesh(), None, shard_table=True)
 
 
 def test_spawn_raises_a_failing_ranks_traceback():

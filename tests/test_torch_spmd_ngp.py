@@ -70,8 +70,9 @@ def _close_params(mine, ref, lr):
 def test_train_step_matches_jax_on_the_same_mesh(data):
     """One multichip_ngp_train_step at data 2 and 4 against JAX's on a
     CPU mesh of that shape: loss rtol 1e-5, params as _close_params; every
-    rank's replicated params bit-equal, and its grid rank 0's without the
-    broadcast (each rank's update draws and evaluates the same)."""
+    rank's replicated params bit-equal, and its grid after an update rank
+    0's with no collective (each rank's update draws and evaluates the
+    same)."""
     jm = jmesh.make_mesh(jax.devices()[:data], data=data, model=1)
     jcfg = jngp.NGPModelConfig(grid=jngp.HashGridConfig(**GRID))
     jt_cfg, jr_cfg = jtr.NGPTrainConfig(**TKW), jnr.NGPRenderConfig(**RKW)
@@ -88,7 +89,7 @@ def test_train_step_matches_jax_on_the_same_mesh(data):
     _close_params(out[0]["params"], _tree(jstate.params), TKW["lr"])
     for r in out:
         assert r["checksums"] == out[0]["checksums"] and r["loss"] == out[0]["loss"]
-        assert r["grid_checksum"] == r["grid_checksum_placed"] == out[0]["grid_checksum"]
+        assert r["grid_checksum"] == out[0]["grid_checksum"]
 
 
 @pytest.fixture(scope="module")
