@@ -65,9 +65,9 @@ Phases, each ending in one line (a failure exits non-zero):
    on the same output gradient, and the count of the encode's output
    elements, and of their gradients, that differ between the two paths.
 9. profile (after every counted and timed run, so that no profiler window
-   precedes them): one render chunk stage by stage, one 800x800 frame and
-   one train block at 4096 rays under torch.profiler, with the device's
-   busy share of the wall time (utils/profiling.py); the wide fused-MLP
+   precedes them): one 800x800 frame and one train block at 4096 rays
+   under torch.profiler, with the device's busy share of the wall time
+   (utils/profiling.py); the wide fused-MLP
    backward by kernel in bf16 and in f32, and one train block of the fused
    flagship (phase 13).
 10. split: phase 8's encode comparison at many trained states: the config
@@ -382,31 +382,22 @@ def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def counters():
-    """Every kernel wrapper of the port, by the kernel's name in the JSON
-    line; each carries its launch count."""
-    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
-    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
-    from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
-
-    return {"fused_mlp": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_backward,
-            "fused_mlp_wide": fm.fused_mlp_wide,
-            "fused_mlp_wide_bwd": fm.fused_mlp_wide_backward,
-            "brick_encode": ge.brick_encode,
-            "brick_encode_bwd": ge.brick_encode_backward,
-            "gather_rows": gp.gather_rows, "gather_lanes": gp.gather_lanes,
-            "scatter_add_rows": gp.scatter_add_rows, "smem_scratch": gp.smem_scratch}
+# every kernel of the port, by its name in the JSON line (the registry's
+# counter is launch.<name>)
+KERNELS = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide", "fused_mlp_wide_bwd",
+           "brick_encode", "brick_encode_bwd", "gather_rows", "gather_lanes",
+           "scatter_add_rows", "smem_scratch")
 
 
 def reset_launches() -> None:
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
+    profiling.reset()
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in counters().items()}
+    counts = profiling.counts(traced=False)
+    return {name: counts[f"launch.{name}"] for name in KERNELS}
 
 
 def phase_build() -> None:
@@ -1647,10 +1638,10 @@ def phase_flagship_fused(card: str, nerf_ctx):
 
     # one held-out view through the fused path
     imgs, c2ws, intrs = run_net.load_eval_views(cfg)
-    before = counters()["fused_mlp_wide"].launches
+    before = read_launches()["fused_mlp_wide"]
     rgb, _ = trainer.render_image(c2ws[0], intrs[0], NERF_SIZE, NERF_SIZE)
     torch.cuda.synchronize()
-    val_launches = counters()["fused_mlp_wide"].launches - before
+    val_launches = read_launches()["fused_mlp_wide"] - before
     val = float(psnr(torch.clamp(rgb, 0, 1).cpu(), torch.from_numpy(imgs[0])))
     render_ok = bool(torch.isfinite(rgb).all()) and val_launches > 0
     worst = max(errs, key=errs.get)
@@ -2013,11 +2004,11 @@ def wide_backward_split(card: str) -> None:
 
 
 def phase_profile(card: str, train_ctx, flagship_ctx) -> None:
-    """Where the time goes, after every counted and timed run: one render
-    chunk stage by stage, one 800x800 frame (the slice's model, built
-    again) and one train block of update_den_freq steps at 4096 rays
-    (the trained model) under torch.profiler, each also timed without it,
-    for the device's busy share of the wall time; then the wide fused-MLP
+    """Where the time goes, after every counted and timed run: one 800x800
+    frame (the slice's model, built again) and one train block of
+    update_den_freq steps at 4096 rays (the trained model) under
+    torch.profiler, each also timed without it, for the device's busy
+    share of the wall time; then the wide fused-MLP
     backward at WIDE_CHAIN and WIDE_ROWS in bf16 by kernel, and one train
     block of the fused flagship (phase 13's trainer)."""
     from myc_nerfs_tpu_torch.cli import run_net
@@ -2031,11 +2022,6 @@ def phase_profile(card: str, train_ctx, flagship_ctx) -> None:
         trainer.state = trainer.state._replace(occ=trainer.grid_update(trainer.state.occ, gen))
     intr = torch.tensor([[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1.0]])
     pose = run_net.path_pose(path_spherical(FRAMES)[1])
-    bg = torch.tensor(trainer.cfg.background_color, device="cuda")
-    split = profiling.render_chunk_split(trainer, *chunk_rays(pose), bg)
-    print("profile: render chunk of 4096 rays, ms by stage (CUDA events, median of 20; "
-          "mlp_device: device time alone): "
-          + " ".join(f"{k}={v:.4f}" for k, v in split.items()) + f" [{card}]", flush=True)
     wall_ms = profiling.wall_ms(lambda: trainer.render_image(pose, intr, H, W))
     prof = profiling.device_profile(lambda: trainer.render_image(pose, intr, H, W))
     print_profile("profile: one 800x800 frame", prof, card, wall_ms=wall_ms)
@@ -2998,7 +2984,7 @@ def phase_multichip(card: str):
           f"(max |a-b| {float(np.abs(r0['render']['rgb'] - plain.rgb.cpu().numpy()).max()):.3e}), "
           f"samples {r0['render']['n_samples']} vs {int(plain.n_samples)}; render s "
           f"{max(r['ngp']['render']['s'] for r in results):.4f} [{card}]", flush=True)
-    launches = {k: 0 for k in counters()}
+    launches = {k: 0 for k in KERNELS}
     per_rank = []
     for r in results:
         run = {k: r["ngp"]["launches"][k] + r["ngp"]["render"]["launches"][k]

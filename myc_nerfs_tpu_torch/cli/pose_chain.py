@@ -52,11 +52,10 @@ from ..geom import pose as pose_lib
 from ..geom import rays as rays_lib
 from ..geom.conventions import parse_raw_camera_barf
 from ..models import ngp
-from ..ops.cuda import fused_mlp as fm
-from ..ops.cuda import grid_encode as ge
 from ..render.ngp_render import NGPRenderConfig
 from ..train import nerf_trainer as nt
 from ..train.ngp_trainer import NGPTrainConfig, NGPTrainer
+from ..utils import profiling
 from ..utils.metrics import psnr
 
 SCALE, OFF = syn.SCALE, syn.OFF
@@ -71,9 +70,9 @@ def emit(**kw) -> None:
 
 def launches() -> Dict[str, int]:
     """The four NGP kernels' launch counts."""
-    return {"fused_mlp": fm.fused_mlp.launches, "fused_mlp_bwd": fm.fused_mlp_backward.launches,
-            "brick_encode": ge.brick_encode.launches,
-            "brick_encode_bwd": ge.brick_encode_backward.launches}
+    counts = profiling.counts(traced=False)
+    return {k: counts[f"launch.{k}"]
+            for k in ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd")}
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:

@@ -39,9 +39,9 @@ from ..data import synthetic as syn
 from ..geom import rays as rays_lib
 from ..models import ngp
 from ..models.ori_nerf import OriginNeRFConfig, OriginNeRFModel
-from ..ops.cuda import fused_mlp as fm
 from ..render.ngp_render import NGPRenderConfig
 from ..train.ngp_trainer import NGPTrainConfig, NGPTrainer
+from ..utils import profiling
 from ..utils.metrics import psnr
 
 # uniform and non-uniform samples of each occupancy update (the JAX harness's)
@@ -170,7 +170,7 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     S = trainer.cfg.update_den_freq
-    launches = (fm.fused_mlp_wide.launches, fm.fused_mlp_wide_backward.launches)
+    launches = profiling.counts(traced=False)
     it, m = start, None
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -200,8 +200,8 @@ def main(argv=None):
         "train_psnr": float(m["psnr"][-1]) if m is not None else None,
         "val_psnr": float(np.mean(ps)), "val_psnrs": ps, "wall_s": wall,
         "krays_s": args.batch * (it - start) / max(wall, 1e-9) / 1e3,
-        "wide_kernel_launches": [fm.fused_mlp_wide.launches - launches[0],
-                                 fm.fused_mlp_wide_backward.launches - launches[1]],
+        "wide_kernel_launches": [profiling.counts(traced=False)[k] - launches[k]
+                                 for k in ("launch.fused_mlp_wide", "launch.fused_mlp_wide_bwd")],
         "device": card}), flush=True)
 
 

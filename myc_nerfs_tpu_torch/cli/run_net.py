@@ -41,6 +41,7 @@ from ..models.ori_nerf import OriginNeRFConfig, OriginNeRFModel
 from ..render.ngp_render import NGPRenderConfig
 from ..train.ngp_trainer import NGPTrainConfig, NGPTrainer
 from ..utils.metrics import psnr
+from ..utils.profiling import span
 
 # val-render cadence during training (runner.py:80-84 renders a val image
 # every 4096 steps); module-level so tests can shrink it
@@ -217,25 +218,26 @@ def train_loop(trainer: NGPTrainer, tcfg: NGPTrainConfig, data, steps: int,
     val_views = None
     history = []
     while it < steps:
-        if batcher.batch != trainer.n_rays_per_batch:
-            batcher = RayBatcher(data.n_images, data.n_pixels,
-                                 trainer.n_rays_per_batch, seed=it)
         trainer.state = trainer.state._replace(
             occ=trainer.grid_update(trainer.state.occ, generator))
         s = min(S, steps - it)
-        os_, ds_, ts_, bgs = [], [], [], []
-        for _ in range(s):
-            img_ids, pix_ids = batcher.next()
-            o, d = data.rays_for_pixels(img_ids, pix_ids)
-            bg = (np.tile(np.asarray(fixed_bg, np.float32), (len(img_ids), 1))
-                  if fixed_bg is not None
-                  else rng.uniform(0, 1, (len(img_ids), 3)).astype(np.float32))
-            ts_.append(data.pixel_values(img_ids, pix_ids, bg=bg))
-            bgs.append(bg)
-            os_.append(o)
-            ds_.append(d)
-        m = trainer.train_block(np.stack(os_), np.stack(ds_), np.stack(ts_),
-                                bg=np.stack(bgs), generator=generator)
+        with span("ngp.batch"):
+            if batcher.batch != trainer.n_rays_per_batch:
+                batcher = RayBatcher(data.n_images, data.n_pixels,
+                                     trainer.n_rays_per_batch, seed=it)
+            os_, ds_, ts_, bgs = [], [], [], []
+            for _ in range(s):
+                img_ids, pix_ids = batcher.next()
+                o, d = data.rays_for_pixels(img_ids, pix_ids)
+                bg = (np.tile(np.asarray(fixed_bg, np.float32), (len(img_ids), 1))
+                      if fixed_bg is not None
+                      else rng.uniform(0, 1, (len(img_ids), 3)).astype(np.float32))
+                ts_.append(data.pixel_values(img_ids, pix_ids, bg=bg))
+                bgs.append(bg)
+                os_.append(o)
+                ds_.append(d)
+            rays_o, rays_d, target, bg = map(np.stack, (os_, ds_, ts_, bgs))
+        m = trainer.train_block(rays_o, rays_d, target, bg=bg, generator=generator)
         trainer._update_batch_rays()
         it += s
         history.append(m)

@@ -35,6 +35,7 @@ from torch import nn
 from ..ops.grid_sample import cell_base_index, grid_sample_3d, grid_sample_cm, line_sample_cm
 from ..ops.sh import eval_sh
 from ..render.composite import raw2alpha
+from ..utils.profiling import span
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))  # tensorBase.py:168
 VEC_MODE = (2, 1, 0)                 # tensorBase.py:169
@@ -503,30 +504,36 @@ def tensorf_forward(cfg: TensoRFConfig, geom: StageGeom, params, buffers,
     n_s = n_samples or geom.n_samples
     rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
     aabb = buffers["aabb"]
-    if ndc_ray:
-        pts, z_vals, valid = sample_ray_ndc(aabb, rays_o, viewdirs, n_s, cfg.near_far, jitter)
-    else:
-        pts, z_vals, valid = sample_ray(aabb, rays_o, viewdirs, geom.step_size, n_s,
-                                        cfg.near_far, jitter)
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], -1)
-    if ndc_ray:
-        norm = torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
-        dists = dists * norm
-        viewdirs = viewdirs / norm
-    occ = alpha_mask_valid(buffers, pts)
-    if occ is not None:
-        valid = torch.logical_and(valid, occ)
-    xyz = normalize_coord(aabb, pts)
-    sigma = masked_density(cfg, params, valid, xyz)
-    alpha, weight, bg_weight = raw2alpha(sigma, dists * cfg.distance_scale)
-    app_mask = weight > cfg.ray_march_weight_thres
+    with span("tensorf.sample"):
+        if ndc_ray:
+            pts, z_vals, valid = sample_ray_ndc(aabb, rays_o, viewdirs, n_s, cfg.near_far,
+                                                jitter)
+        else:
+            pts, z_vals, valid = sample_ray(aabb, rays_o, viewdirs, geom.step_size, n_s,
+                                            cfg.near_far, jitter)
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.zeros_like(z_vals[:, :1])], -1)
+        if ndc_ray:
+            norm = torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
+            dists = dists * norm
+            viewdirs = viewdirs / norm
+        occ = alpha_mask_valid(buffers, pts)
+        if occ is not None:
+            valid = torch.logical_and(valid, occ)
+        xyz = normalize_coord(aabb, pts)
+    with span("tensorf.density"):
+        sigma = masked_density(cfg, params, valid, xyz)
+    with span("tensorf.shade"):
+        alpha, weight, bg_weight = raw2alpha(sigma, dists * cfg.distance_scale)
+        app_mask = weight > cfg.ray_march_weight_thres
 
-    idx = selected(app_mask)
-    xyz_a = xyz.reshape(-1, 3)[idx]
-    dirs = viewdirs[torch.div(idx, n_s, rounding_mode="floor")]
-    rgb = shade(cfg, params, xyz_a, dirs, compute_app_feature(cfg, params, xyz_a))
-    rgb_s = scatter_rows(idx, rgb, app_mask.numel()).reshape(app_mask.shape + (3,))
-    rgb_map, depth_map = composite_maps(cfg, weight, rgb_s, z_vals, rays, white_bg)
+        idx = selected(app_mask)
+        xyz_a = xyz.reshape(-1, 3)[idx]
+        dirs = viewdirs[torch.div(idx, n_s, rounding_mode="floor")]
+        rgb = shade(cfg, params, xyz_a, dirs, compute_app_feature(cfg, params, xyz_a))
+        rgb_s = scatter_rows(idx, rgb, app_mask.numel()).reshape(app_mask.shape + (3,))
+    with span("tensorf.composite"):
+        rgb_map, depth_map = composite_maps(cfg, weight, rgb_s, z_vals, rays, white_bg)
     return TensoRFOut(rgb_map=rgb_map, depth_map=depth_map, weight=weight, sigma=sigma,
                       bg_weight=bg_weight, z_vals=z_vals,
                       extras={"app_mask": app_mask, "valid": valid})

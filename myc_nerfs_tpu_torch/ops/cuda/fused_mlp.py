@@ -43,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ...utils.profiling import count
 from ...utils.timing import roofline
 from . import _build
 
@@ -472,7 +473,7 @@ def _narrow_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                                 ctas, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed (error {err})")
-    fused_mlp.launches += 1
+    count("launch.fused_mlp", 1)
     return y
 
 
@@ -534,7 +535,7 @@ def _narrow_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                                     _DTYPE_CODE[x.dtype], stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp backward kernel launch failed (error {err})")
-        fused_mlp_backward.launches += 1
+        count("launch.fused_mlp_bwd", 1)
     dws = [t.view(a, b) for t, a, b in
            zip(torch.split(dw, sizes), widths[:-1], widths[1:])]
     return dx, dws
@@ -562,7 +563,7 @@ def fused_mlp_wide(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
     if err != 0:
         raise RuntimeError(f"fused_mlp wide kernel launch failed (error {err}) "
                            f"for widths {widths}")
-    fused_mlp_wide.launches += 1
+    count("launch.fused_mlp_wide", 1)
     return y
 
 
@@ -614,7 +615,7 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
         if err != 0:
             raise RuntimeError(f"fused_mlp wide backward launch failed (error {err}) "
                                f"for widths {widths}")
-        fused_mlp_wide_backward.launches += 1
+        count("launch.fused_mlp_wide_bwd", 1)
     dws = [t.view(a, b) for t, a, b in
            zip(torch.split(dw, sizes), widths[:-1], widths[1:])]
     return dx, dws
@@ -681,9 +682,3 @@ def exact_inputs(widths: Sequence[int], rows: int, dtype: torch.dtype, device,
           for a, b in zip(widths[:-1], widths[1:])]
     g = torch.randint(-2, 3, (rows, widths[-1]), generator=gen).float()
     return x.to(device, dtype), [w.to(device, dtype) for w in ws], g.to(device, dtype)
-
-
-fused_mlp.launches = 0                # narrow forward kernel launches
-fused_mlp_backward.launches = 0       # narrow backward kernel launches
-fused_mlp_wide.launches = 0           # wide forward kernel launches
-fused_mlp_wide_backward.launches = 0  # wide backward launches (chain, dW, sum)

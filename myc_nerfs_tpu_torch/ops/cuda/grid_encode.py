@@ -26,6 +26,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...utils.profiling import count
 from ...utils.timing import roofline
 from .. import brick_grid as bg
 from . import _build
@@ -171,7 +172,7 @@ def brick_encode(tables: Sequence[torch.Tensor], positions: torch.Tensor,
     if positions.shape[0] == 0:
         return out
     _launch("brick_encode_fwd", tables, positions, out, cfg, levels, groups, bf16)
-    brick_encode.launches += 1
+    count("launch.brick_encode", 1)
     return out
 
 
@@ -200,7 +201,7 @@ def brick_encode_backward(tables: Sequence[torch.Tensor], positions: torch.Tenso
     if positions.shape[0] == 0:
         return grads
     _launch("brick_encode_bwd", grads, positions, g, cfg, levels, groups, bf16)
-    brick_encode_backward.launches += 1
+    count("launch.brick_encode_bwd", 1)
     return grads
 
 
@@ -253,7 +254,3 @@ def paired_encode(tables: Sequence[torch.Tensor], positions: torch.Tensor,
     pos = positions.detach().reshape(-1, 3).contiguous()
     out = _PairedEncode.apply(cfg, levels, groups, compute_dtype, pos, *tables)
     return out.reshape(shape + (cfg.out_dim,))
-
-
-brick_encode.launches = 0           # forward kernel launches
-brick_encode_backward.launches = 0  # backward kernel launches

@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from ...utils.profiling import count
 from . import _build
 
 SOURCE = _build.CSRC / "grid_probe.cu"
@@ -125,7 +126,7 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     _run("gather_rows", tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
          idx.shape[0], row_bytes // 16, tab.shape[0])
-    gather_rows.launches += 1
+    count("launch.gather_rows", 1)
     return out
 
 
@@ -144,7 +145,7 @@ def gather_lanes(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     _run("gather_lanes", tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
          idx.shape[0], idx.shape[1], tab.shape[1])
-    gather_lanes.launches += 1
+    count("launch.gather_lanes", 1)
     return out
 
 
@@ -168,7 +169,7 @@ def scatter_add_rows(idx: torch.Tensor, val: torch.Tensor, n_rows: int) -> torch
         return out
     _run("scatter_add_rows", val.device, idx.data_ptr(), val.data_ptr(), out.data_ptr(),
          idx.shape[0], val.shape[1] // 4, n_rows)
-    scatter_add_rows.launches += 1
+    count("launch.scatter_add_rows", 1)
     return out
 
 
@@ -184,11 +185,5 @@ def smem_scratch(n_bytes: int, device="cuda") -> torch.Tensor:
     _scratch_rows(n_bytes)
     out = torch.empty(1, dtype=torch.float32, device=device)
     _run("smem_scratch", device, out.data_ptr(), n_bytes)
-    smem_scratch.launches += 1
+    count("launch.smem_scratch", 1)
     return out
-
-
-gather_rows.launches = 0
-gather_lanes.launches = 0
-scatter_add_rows.launches = 0
-smem_scratch.launches = 0

@@ -19,16 +19,9 @@ import torch
 
 from . import mesh as mesh_lib
 from . import spmd
+from ..utils import profiling
 
 KERNEL_COUNTERS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd")
-
-
-def _counters() -> dict:
-    from ..ops.cuda import fused_mlp as fm
-    from ..ops.cuda import grid_encode as ge
-
-    return {"fused_mlp": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_backward,
-            "brick_encode": ge.brick_encode, "brick_encode_bwd": ge.brick_encode_backward}
 
 
 def prebuild(device) -> None:
@@ -43,14 +36,14 @@ def prebuild(device) -> None:
 
 
 def reset_launches() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
+    profiling.reset()
 
 
 def read_launches(device) -> Dict[str, int]:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in _counters().items()}
+    counts = profiling.counts(traced=False)
+    return {k: counts[f"launch.{k}"] for k in KERNEL_COUNTERS}
 
 
 def checksum(tensors: Sequence[torch.Tensor]) -> int:

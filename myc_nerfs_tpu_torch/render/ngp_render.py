@@ -26,6 +26,7 @@ import torch
 
 from ..models.ngp import density_activation, rgb_activation
 from ..ops.compaction import compact_first_k
+from ..utils import profiling
 from .composite import composite_rgb, composite_weights
 from .occupancy import (OccupancyConfig, OccupancyState, grid_value_at, mip_from_pos,
                         occupied_at, occupied_at_mip0, sigma_at)
@@ -242,9 +243,11 @@ def render_marched(model_apply: Callable, marched: MarchedRays,
     (sigmoid here) and raw density (exp here).
     """
     N, K, _ = marched.positions.shape
-    raw = model_apply(marched.positions.reshape(-1, 3),
-                      marched.dirs.reshape(-1, 3)).reshape(N, K, 4)
-    return composite_marched(raw, marched, bg_color, early_stop_eps)
+    with profiling.span("ngp.field"):
+        raw = model_apply(marched.positions.reshape(-1, 3),
+                          marched.dirs.reshape(-1, 3)).reshape(N, K, 4)
+    with profiling.span("ngp.composite"):
+        return composite_marched(raw, marched, bg_color, early_stop_eps)
 
 
 def composite_marched(raw: torch.Tensor, marched: MarchedRays,
@@ -275,12 +278,23 @@ def render_rays_ngp(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
     keeps n_compact of them, by the density grid ('grid') or by
     ``density_apply``'s detached density ('network').
     """
+    with profiling.span("ngp.march"):
+        marched = _march(occ_cfg, rcfg, occ_state, rays_o, rays_d, xi, density_apply)
+    out = render_marched(model_apply, marched, bg_color, rcfg.early_stop_eps)
+    profiling.count("ngp.march.slots", marched.valid.numel())
+    profiling.count("ngp.march.valid", out.n_samples)
+    return out
+
+
+def _march(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig, occ_state: OccupancyState,
+           rays_o: torch.Tensor, rays_d: torch.Tensor, xi: Optional[torch.Tensor],
+           density_apply: Optional[Callable]) -> MarchedRays:
+    """render_rays_ngp's samples: the fused march, or the bitfield march
+    and, in training, its compaction."""
     compacting = density_apply is not None and rcfg.n_compact > 0
     if rcfg.fused_march and not (compacting and rcfg.compact_source == "network"):
         K = rcfg.n_compact if compacting else rcfg.n_samples
-        marched = march_rays_fused(occ_cfg, rcfg, occ_state, rays_o, rays_d, xi,
-                                   n_samples=K)
-        return render_marched(model_apply, marched, bg_color, rcfg.early_stop_eps)
+        return march_rays_fused(occ_cfg, rcfg, occ_state, rays_o, rays_d, xi, n_samples=K)
     marched = march_rays(occ_cfg, rcfg, occ_state.bitfield, rays_o, rays_d, xi)
     if compacting:
         N, K, _ = marched.positions.shape
@@ -294,4 +308,4 @@ def render_rays_ngp(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
                 raw = density_apply(marched.positions.reshape(-1, 3))
                 sigma_det = density_activation(raw.reshape(N, K))
         marched = compact_marched(marched, sigma_det, rcfg.n_compact, rcfg.early_stop_eps)
-    return render_marched(model_apply, marched, bg_color, rcfg.early_stop_eps)
+    return marched

@@ -18,6 +18,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 SQRT3 = 1.73205080757
 NERF_GRIDSIZE = 128
 NERF_MIN_OPTICAL_THICKNESS = 0.01
@@ -195,25 +197,26 @@ def make_density_grid_update(cfg: OccupancyConfig, density_raw_fn: Callable,
     def update(state: OccupancyState, generator: Optional[torch.Generator] = None,
                draws: Optional[Tuple[GridDraws, Optional[GridDraws]]] = None
                ) -> OccupancyState:
-        device = state.density_grid.device
-        if draws is None:
-            if generator is None:
-                raise ValueError("grid update needs a generator or draws")
-            draws = (draw_grid_samples(cfg, n_uniform, generator, device),
-                     draw_grid_samples(cfg, n_nonuniform, generator, device)
-                     if n_nonuniform else None)
-        pos, idx = generate_grid_samples(cfg, state, draws[0], -0.01)
-        if n_nonuniform:
-            pos_n, idx_n = generate_grid_samples(cfg, state, draws[1],
-                                                 NERF_MIN_OPTICAL_THICKNESS)
-            pos, idx = torch.cat([pos, pos_n]), torch.cat([idx, idx_n])
-        warped = torch.clamp((pos - lo) / (hi - lo), 0.0, 1.0)
-        raw = density_raw_fn(warped)[..., 0]
-        tmp = splat_max(cfg, torch.zeros_like(state.density_grid), idx, raw)
-        grid = ema_update(cfg, state.density_grid, tmp)
-        bitfield, mean = update_bitfield(cfg, grid)
-        return OccupancyState(density_grid=grid, bitfield=bitfield,
-                              mean_density=mean, ema_step=state.ema_step + 1)
+        with span("ngp.grid_update"):
+            device = state.density_grid.device
+            if draws is None:
+                if generator is None:
+                    raise ValueError("grid update needs a generator or draws")
+                draws = (draw_grid_samples(cfg, n_uniform, generator, device),
+                         draw_grid_samples(cfg, n_nonuniform, generator, device)
+                         if n_nonuniform else None)
+            pos, idx = generate_grid_samples(cfg, state, draws[0], -0.01)
+            if n_nonuniform:
+                pos_n, idx_n = generate_grid_samples(cfg, state, draws[1],
+                                                     NERF_MIN_OPTICAL_THICKNESS)
+                pos, idx = torch.cat([pos, pos_n]), torch.cat([idx, idx_n])
+            warped = torch.clamp((pos - lo) / (hi - lo), 0.0, 1.0)
+            raw = density_raw_fn(warped)[..., 0]
+            tmp = splat_max(cfg, torch.zeros_like(state.density_grid), idx, raw)
+            grid = ema_update(cfg, state.density_grid, tmp)
+            bitfield, mean = update_bitfield(cfg, grid)
+            return OccupancyState(density_grid=grid, bitfield=bitfield,
+                                  mean_density=mean, ema_step=state.ema_step + 1)
 
     return update
 

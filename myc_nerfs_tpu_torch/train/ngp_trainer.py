@@ -41,6 +41,7 @@ from ..parallel import mesh as mesh_lib
 from ..render import occupancy as occ
 from ..render.ngp_render import NGPRenderConfig, render_rays_ngp
 from ..utils.metrics import mse2psnr
+from ..utils.profiling import span
 
 
 def huber_loss(x: torch.Tensor, y: torch.Tensor, delta: float = 0.1) -> torch.Tensor:
@@ -309,12 +310,14 @@ class NGPTrainer:
         out = render_rays_ngp(self.occ_cfg, self.rcfg, self.model, self.state.occ,
                               rays_o, rays_d, bg, xi,
                               density_apply=self.model.density_raw)
-        return self.loss_fn(out.rgb, target).mean(), out
+        with span("ngp.loss"):
+            return self.loss_fn(out.rgb, target).mean(), out
 
     def backward(self, loss: torch.Tensor) -> List[torch.Tensor]:
         params = self.model.param_list()
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with span("ngp.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -322,10 +325,11 @@ class NGPTrainer:
         returns the all-finite flag (None without skip_nonfinite)."""
         params = self.model.param_list()
         st = self.state
-        new, opt_state, finite = apply_param_update(
-            self.cfg, [p.detach() for p in params], st.opt_state, st.step, grads)
-        for p, n in zip(params, new):
-            p.copy_(n)
+        with span("ngp.update"):
+            new, opt_state, finite = apply_param_update(
+                self.cfg, [p.detach() for p in params], st.opt_state, st.step, grads)
+            for p, n in zip(params, new):
+                p.copy_(n)
         self.state = st._replace(opt_state=opt_state, step=st.step + 1)
         return finite
 
@@ -347,23 +351,24 @@ class NGPTrainer:
         return out
 
     def _step(self, rays_o, rays_d, target, bg, xi) -> Dict[str, torch.Tensor]:
-        with torch.enable_grad():
-            loss, out = self.forward(rays_o, rays_d, target, bg, xi)
-            grads = self.backward(loss)
-        loss, n_samples = loss.detach(), out.n_samples
-        with torch.no_grad():
-            mse = torch.mean((out.rgb - target) ** 2)
-        if self.mesh is not None:
-            grads = self.reduce_gradients(grads)
-            # the global batch's metrics: its mean loss and mse, and its
-            # samples (summed over the data shards: the batch adaptation
-            # then reads one count on every rank and picks one rung)
-            loss, mse = mesh_lib.all_reduce_mean(self.mesh, [loss, mse], "world")
-            (n_samples,) = mesh_lib.all_reduce_sum(self.mesh, [n_samples], "data")
-        finite = self.update(grads)
-        return {"loss": loss, "psnr": mse2psnr(mse), "n_samples": n_samples,
-                "finite": (torch.ones((), dtype=torch.bool, device=loss.device)
-                           if finite is None else finite)}
+        with span("ngp.step"):
+            with torch.enable_grad():
+                loss, out = self.forward(rays_o, rays_d, target, bg, xi)
+                grads = self.backward(loss)
+            loss, n_samples = loss.detach(), out.n_samples
+            with torch.no_grad():
+                mse = torch.mean((out.rgb - target) ** 2)
+            if self.mesh is not None:
+                grads = self.reduce_gradients(grads)
+                # the global batch's metrics: its mean loss and mse, and its
+                # samples (summed over the data shards: the batch adaptation
+                # then reads one count on every rank and picks one rung)
+                loss, mse = mesh_lib.all_reduce_mean(self.mesh, [loss, mse], "world")
+                (n_samples,) = mesh_lib.all_reduce_sum(self.mesh, [n_samples], "data")
+            finite = self.update(grads)
+            return {"loss": loss, "psnr": mse2psnr(mse), "n_samples": n_samples,
+                    "finite": (torch.ones((), dtype=torch.bool, device=loss.device)
+                               if finite is None else finite)}
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
@@ -382,8 +387,9 @@ class NGPTrainer:
         S, B = rays_o.shape[:2]
         self._apply_march_schedule()
         self.host_step += S
-        rays_o, rays_d, target = map(self._tensor, (rays_o, rays_d, target))
-        bg = self._tensor(self.cfg.background_color if bg is None else bg)
+        with span("ngp.h2d"):
+            rays_o, rays_d, target = map(self._tensor, (rays_o, rays_d, target))
+            bg = self._tensor(self.cfg.background_color if bg is None else bg)
         bg = bg.expand(S, B, 3)
         gen = generator or self.generator
         steps = []
@@ -429,8 +435,9 @@ class NGPTrainer:
         the global batch's (each step's n_samples is summed over the data
         shards), so every rank picks the same rung and ``n_rays_per_batch``
         is the global batch."""
-        measured = max(float(self._measured_samples)
-                       / max(self._measure_count, 1), 1.0)
+        with span("ngp.adapt_batch"):
+            measured = max(float(self._measured_samples)
+                           / max(self._measure_count, 1), 1.0)
         rays = int(self.n_rays_per_batch * self.cfg.target_batch_size / measured)
         rays = max(128, min(rays, self.cfg.target_batch_size))
         self.n_rays_per_batch = _ladder_floor(rays)
@@ -445,27 +452,29 @@ class NGPTrainer:
         Returns (rgb [H, W, 3], depth [H, W])."""
         from ..geom import rays as rays_lib
 
-        pose_c2w = torch.as_tensor(pose_c2w, dtype=torch.float32, device=self.device)
-        intr = torch.as_tensor(intr, dtype=torch.float32, device=self.device)
-        d = rays_lib.get_ray_directions(H, W, (intr[0, 0], intr[1, 1]),
-                                        center=(intr[0, 2], intr[1, 2]),
-                                        device=self.device)
-        rays_d = d.reshape(-1, 3) @ pose_c2w[:3, :3].T
-        rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-        rays_o = pose_c2w[:3, 3].expand(rays_d.shape)
-        n = H * W
-        pad = (-n) % chunk
-        rays_o = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
-        rays_d = torch.nn.functional.pad(rays_d, (0, 0, 0, pad))
-        bg = torch.tensor(self.cfg.background_color, dtype=torch.float32,
-                          device=self.device)
-        rgbs, depths = [], []
-        for s in range(0, n + pad, chunk):
-            out = render_rays_ngp(self.occ_cfg, self.rcfg, self.model,
-                                  self.state.occ, rays_o[s:s + chunk],
-                                  rays_d[s:s + chunk], bg)
-            rgbs.append(out.rgb)
-            depths.append(out.depth)
-        rgb = torch.cat(rgbs)[:n].reshape(H, W, 3)
-        depth = torch.cat(depths)[:n].reshape(H, W)
-        return rgb, depth
+        with span("ngp.frame"):
+            pose_c2w = torch.as_tensor(pose_c2w, dtype=torch.float32, device=self.device)
+            intr = torch.as_tensor(intr, dtype=torch.float32, device=self.device)
+            d = rays_lib.get_ray_directions(H, W, (intr[0, 0], intr[1, 1]),
+                                            center=(intr[0, 2], intr[1, 2]),
+                                            device=self.device)
+            rays_d = d.reshape(-1, 3) @ pose_c2w[:3, :3].T
+            rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+            rays_o = pose_c2w[:3, 3].expand(rays_d.shape)
+            n = H * W
+            pad = (-n) % chunk
+            rays_o = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
+            rays_d = torch.nn.functional.pad(rays_d, (0, 0, 0, pad))
+            bg = torch.tensor(self.cfg.background_color, dtype=torch.float32,
+                              device=self.device)
+            rgbs, depths = [], []
+            for s in range(0, n + pad, chunk):
+                with span("ngp.chunk"):
+                    out = render_rays_ngp(self.occ_cfg, self.rcfg, self.model,
+                                          self.state.occ, rays_o[s:s + chunk],
+                                          rays_d[s:s + chunk], bg)
+                    rgbs.append(out.rgb)
+                    depths.append(out.depth)
+            rgb = torch.cat(rgbs)[:n].reshape(H, W, 3)
+            depth = torch.cat(depths)[:n].reshape(H, W)
+            return rgb, depth

@@ -27,8 +27,9 @@ rank on the same params and leave the buffers equal.
 
 The JAX package scans blocks of steps in one program (a TPU dispatch
 workaround); here a step is a Python call. A step's draws are an argument
-(``draws``) or come from a torch.Generator; a step syncs with the host only
-for the two ``nonzero`` of the boolean sample selection.
+(``draws``) or come from a torch.Generator; a step syncs with the host for
+the two ``nonzero`` of the boolean sample selection and once in autograd's
+backward (three blocking calls a step on the card).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from ..models import tensorf as tf
 from ..evaluation.visualization import save_image
 from ..parallel import mesh as mesh_lib
 from ..utils.metrics import mse2psnr
+from ..utils.profiling import span
 from .ngp_trainer import adam_step, init_adam
 
 BETAS, EPS = (0.9, 0.99), 1e-8
@@ -113,18 +115,19 @@ def tensorf_loss(model_cfg: tf.TensoRFConfig, cfg: TensoRFTrainConfig, forward_f
     out = forward_fn(params, rays, draws)
     mse = torch.mean((out.rgb_map - rgbs) ** 2)
     total = mse
-    if cfg.ortho_weight > 0:
-        total = total + cfg.ortho_weight * tf.vector_comp_diffs(params)
-    first = cfg.update_alphamask_list[0] if cfg.update_alphamask_list else cfg.n_iters
-    l1_w = torch.where(step < first, cfg.l1_weight_initial, cfg.l1_weight_rest)
-    total = total + l1_w * tf.density_L1(model_cfg, params)
-    decay = torch.pow(lr_factor, step.float() + 1.0)
-    if cfg.tv_weight_density > 0:
-        total = total + cfg.tv_weight_density * decay * tf.tv_loss_density(model_cfg, params)
-    if cfg.tv_weight_app > 0:
-        total = total + cfg.tv_weight_app * decay * tf.tv_loss_app(model_cfg, params)
-    if extra_loss_fn is not None:
-        total = total + extra_loss_fn(params, out)
+    with span("tensorf.regularizers"):
+        if cfg.ortho_weight > 0:
+            total = total + cfg.ortho_weight * tf.vector_comp_diffs(params)
+        first = cfg.update_alphamask_list[0] if cfg.update_alphamask_list else cfg.n_iters
+        l1_w = torch.where(step < first, cfg.l1_weight_initial, cfg.l1_weight_rest)
+        total = total + l1_w * tf.density_L1(model_cfg, params)
+        decay = torch.pow(lr_factor, step.float() + 1.0)
+        if cfg.tv_weight_density > 0:
+            total = total + cfg.tv_weight_density * decay * tf.tv_loss_density(model_cfg, params)
+        if cfg.tv_weight_app > 0:
+            total = total + cfg.tv_weight_app * decay * tf.tv_loss_app(model_cfg, params)
+        if extra_loss_fn is not None:
+            total = total + extra_loss_fn(params, out)
     return total, mse, out
 
 
@@ -219,7 +222,8 @@ class TensoRFTrainer:
         spatial, net = tf.group_leaves(self.params)
         with torch.enable_grad():
             total, mse, _ = self.loss(rays, rgbs, draws)
-            grads = torch.autograd.grad(total, spatial + net, allow_unused=True)
+            with span("tensorf.backward"):
+                grads = torch.autograd.grad(total, spatial + net, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(spatial + net, grads)]
         mse = mse.detach()
         if self.mesh is not None:
@@ -229,17 +233,18 @@ class TensoRFTrainer:
     def train_step(self, rays, rgbs, draws) -> Dict[str, torch.Tensor]:
         """One SGD step; params are updated in place. Returns {"mse", "psnr"}
         as device scalars."""
-        g_s, g_n, mse = self.grads(rays, rgbs, draws)
-        spatial, net = tf.group_leaves(self.params)
-        with torch.no_grad():
-            up, self.opt_spatial = adam_step(self.sched_spatial, BETAS, EPS, g_s,
-                                             self.opt_spatial)
-            torch._foreach_add_(spatial, up)
-            up, self.opt_net = adam_step(self.sched_net, BETAS, EPS, g_n, self.opt_net)
-            torch._foreach_add_(net, up)
-            self.step_t += 1
-        self.global_step += 1
-        return {"mse": mse, "psnr": mse2psnr(mse)}
+        with span("tensorf.step"):
+            g_s, g_n, mse = self.grads(rays, rgbs, draws)
+            spatial, net = tf.group_leaves(self.params)
+            with torch.no_grad(), span("tensorf.update"):
+                up, self.opt_spatial = adam_step(self.sched_spatial, BETAS, EPS, g_s,
+                                                 self.opt_spatial)
+                torch._foreach_add_(spatial, up)
+                up, self.opt_net = adam_step(self.sched_net, BETAS, EPS, g_n, self.opt_net)
+                torch._foreach_add_(net, up)
+                self.step_t += 1
+            self.global_step += 1
+            return {"mse": mse, "psnr": mse2psnr(mse)}
 
     def train(self, all_rays: torch.Tensor, all_rgbs: torch.Tensor,
               n_iters: Optional[int] = None, generator: Optional[torch.Generator] = None,
@@ -256,15 +261,17 @@ class TensoRFTrainer:
         end = self.global_step + (cfg.n_iters if n_iters is None else n_iters)
         while self.global_step < end:
             it = self.global_step
-            n = len(sampler.nextids())
-            if sampler.ids is not perm_src:
-                perm_src = sampler.ids
-                perm = torch.from_numpy(perm_src).to(self.device)
-            ids = perm[sampler.curr:sampler.curr + n]
-            d = draws(it) if draws is not None else self.draw_fn(self, n, gen)
-            if self.mesh is not None:
-                ids, d = mesh_lib.shard_batch(self.mesh, ids), shard_draws(self.mesh, d, n)
-            metrics = self.train_step(all_rays[ids], all_rgbs[ids], d)
+            with span("tensorf.batch"):
+                n = len(sampler.nextids())
+                if sampler.ids is not perm_src:
+                    perm_src = sampler.ids
+                    perm = torch.from_numpy(perm_src).to(self.device)
+                ids = perm[sampler.curr:sampler.curr + n]
+                d = draws(it) if draws is not None else self.draw_fn(self, n, gen)
+                if self.mesh is not None:
+                    ids, d = mesh_lib.shard_batch(self.mesh, ids), shard_draws(self.mesh, d, n)
+                rays, rgbs = all_rays[ids], all_rgbs[ids]
+            metrics = self.train_step(rays, rgbs, d)
             if log_every and it % log_every == 0:
                 print(f"iter {it} psnr {float(metrics['psnr']):.2f}", flush=True)
             filtered = self.events(it + 1, all_rays)
@@ -276,38 +283,40 @@ class TensoRFTrainer:
     def events(self, step: int, all_rays: torch.Tensor) -> Optional[torch.Tensor]:
         """The events after ``step`` steps; returns the mask of the rays to
         keep at the ray refilter, else None."""
-        cfg = self.cfg
-        keep = None
-        if step in cfg.update_alphamask_list:
-            reso_mask = [min(g, cfg.alpha_mask_reso_cap) for g in self.geom.grid_size]
-            self.buffers, new_aabb = tf.update_alpha_mask(self.model_cfg, self.geom, self.params,
-                                                          self.buffers, tuple(reso_mask))
-            degenerate = (not np.all(np.isfinite(new_aabb))) or np.any(new_aabb[1] <= new_aabb[0])
-            if degenerate:
-                # an empty mask (nothing above the threshold yet): keep the
-                # AABB and drop the mask
-                new_aabb = self.buffers["aabb"].cpu().numpy()
-                self.buffers["alpha_volume"] = None
-                self.buffers = tf.prepare_alpha_buffers(self.buffers)
-            if step == cfg.update_alphamask_list[0] and not degenerate:
-                self.params, self.buffers, new_size = tf.shrink(
-                    self.model_cfg, self.geom, self.params, self.buffers, new_aabb)
-                self.geom = tf.compute_stage_geom(self.model_cfg,
-                                                  self.buffers["aabb"].cpu().numpy(),
-                                                  new_size, cfg.n_samples_cap)
-            if len(cfg.update_alphamask_list) > 1 and step == cfg.update_alphamask_list[1]:
-                keep = tf.filter_rays_bbox(self.buffers["aabb"], all_rays)
-            self._rebuild(lr_scale=1.0)
-        if step in cfg.upsamp_list:
-            n_vox = self.voxel_schedule.pop(0)
-            aabb = self.buffers["aabb"].cpu().numpy()
-            reso = n_to_reso(n_vox, aabb)
-            self.params = tf.upsample_volume_grid(self.model_cfg, self.params, reso)
-            self.geom = tf.compute_stage_geom(self.model_cfg, aabb, reso, cfg.n_samples_cap)
-            lr_scale = (1.0 if cfg.lr_upsample_reset
-                        else cfg.lr_decay_target_ratio ** ((step - 1) / cfg.n_iters))
-            self._rebuild(lr_scale=lr_scale)
-        return keep
+        with span("tensorf.events"):
+            cfg = self.cfg
+            keep = None
+            if step in cfg.update_alphamask_list:
+                reso_mask = [min(g, cfg.alpha_mask_reso_cap) for g in self.geom.grid_size]
+                self.buffers, new_aabb = tf.update_alpha_mask(
+                    self.model_cfg, self.geom, self.params, self.buffers, tuple(reso_mask))
+                degenerate = ((not np.all(np.isfinite(new_aabb)))
+                              or np.any(new_aabb[1] <= new_aabb[0]))
+                if degenerate:
+                    # an empty mask (nothing above the threshold yet): keep the
+                    # AABB and drop the mask
+                    new_aabb = self.buffers["aabb"].cpu().numpy()
+                    self.buffers["alpha_volume"] = None
+                    self.buffers = tf.prepare_alpha_buffers(self.buffers)
+                if step == cfg.update_alphamask_list[0] and not degenerate:
+                    self.params, self.buffers, new_size = tf.shrink(
+                        self.model_cfg, self.geom, self.params, self.buffers, new_aabb)
+                    self.geom = tf.compute_stage_geom(self.model_cfg,
+                                                      self.buffers["aabb"].cpu().numpy(),
+                                                      new_size, cfg.n_samples_cap)
+                if len(cfg.update_alphamask_list) > 1 and step == cfg.update_alphamask_list[1]:
+                    keep = tf.filter_rays_bbox(self.buffers["aabb"], all_rays)
+                self._rebuild(lr_scale=1.0)
+            if step in cfg.upsamp_list:
+                n_vox = self.voxel_schedule.pop(0)
+                aabb = self.buffers["aabb"].cpu().numpy()
+                reso = n_to_reso(n_vox, aabb)
+                self.params = tf.upsample_volume_grid(self.model_cfg, self.params, reso)
+                self.geom = tf.compute_stage_geom(self.model_cfg, aabb, reso, cfg.n_samples_cap)
+                lr_scale = (1.0 if cfg.lr_upsample_reset
+                            else cfg.lr_decay_target_ratio ** ((step - 1) / cfg.n_iters))
+                self._rebuild(lr_scale=lr_scale)
+            return keep
 
     @torch.no_grad()
     def render_rays(self, rays: torch.Tensor, chunk: int = 4096):

@@ -1,31 +1,135 @@
 """Where a train step's and a render chunk's time goes on a CUDA device.
 
+- ``span(name)``: a named host span on torch.profiler's own timeline
+  (function scope, as aten ops: no device-side annotation), entered only
+  while a profiler records; otherwise one shared null context. ``SPANS``
+  declares every name the package uses, each with what it covers.
+- ``count(name, n)``: the counter registry (``COUNTERS``). Host ints always
+  add to the totals (kernel launches: ``launch.<kernel>``); while a
+  profiler records, ``n`` (a host int or a device scalar, kept by
+  reference and summed when read) also adds to the traced totals.
+  ``counts(traced)`` reads them, ``reset()`` zeroes both.
+- ``trace(dir)``: a torch.profiler window written as a Chrome trace, the
+  operator's way to see the spans in Perfetto or chrome://tracing.
 - ``device_profile(fn)``: one ``fn()`` under torch.profiler; the device
   activity (kernels, copies, memsets) summed by name, and its union over
   the window.
-- ``render_chunk_split(trainer, rays_o, rays_d, bg)``: one render chunk
-  (render/ngp_render.py::render_rays_ngp) stage by stage (march, encode,
-  SH, MLPs, composite), each stage timed alone with CUDA events.
 - ``wall_ms(fn)``: one ``fn()`` on the host clock without the profiler,
   the denominator of the device's busy share.
-- ``trace(dir)``: a torch.profiler window written as a Chrome trace;
-  ``Throughput``: items per second between two host reads of a probe
+- ``Throughput``: items per second between two host reads of a probe
   tensor; ``checkify_nan(fn)``: fn with a finite check of its floating
   outputs that raises (each check is a host sync: off the main path).
 
-chip_smoke.py prints both for the Car config; PERF.md section 5 reads them.
+chip_smoke.py prints device_profile and wall_ms for the Car config; the
+benchmark's per-layer metrics read the spans and the traced counters.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
 
-from .timing import graph_ms, median_ms
+# -- spans and counters --------------------------------------------------------
 
+SPANS: Dict[str, str] = {
+    "ngp.grid_update": "one occupancy-grid update (render/occupancy.py)",
+    "ngp.batch": "one block's ray batches on the host: RayBatcher, rays, pixels, "
+                 "backgrounds, the stacks (cli/run_net.train_loop)",
+    "ngp.h2d": "the block's host-to-device copies of rays, targets, backgrounds",
+    "ngp.step": "one NGP train step (NGPTrainer._step)",
+    "ngp.march": "the march: march_rays_fused, or march_rays with compact_marched",
+    "ngp.field": "the field on the marched samples: encode, SH, both MLPs",
+    "ngp.composite": "composite_marched",
+    "ngp.loss": "the Huber loss and its mean",
+    "ngp.backward": "autograd.grad of the loss",
+    "ngp.update": "apply_param_update (clip, fp16 emulation, Adam, EMA), the in-place copies",
+    "ngp.adapt_batch": "the batch adaptation's host read of the measured samples",
+    "ngp.frame": "one whole-image render (NGPTrainer.render_image)",
+    "ngp.chunk": "one render chunk's render_rays_ngp",
+    "tensorf.batch": "one step's ray ids, permutation upload, draws and ray gathers",
+    "tensorf.step": "one TensoRF train step (TensoRFTrainer.train_step)",
+    "tensorf.sample": "sample_ray, dists, the alpha-mask gate, normalize_coord",
+    "tensorf.density": "masked_density and its nonzero",
+    "tensorf.shade": "raw2alpha, the weight threshold's nonzero, app features, "
+                     "shade, scatter_rows",
+    "tensorf.composite": "composite_maps",
+    "tensorf.regularizers": "ortho, L1, TV and a family's extra loss",
+    "tensorf.backward": "autograd.grad of the loss",
+    "tensorf.update": "both Adams and their in-place adds",
+    "tensorf.events": "the stage events: alpha mask, shrink, upsample, ray refilter",
+}
+
+COUNTERS: Dict[str, str] = {
+    "ngp.march.slots": "sample slots the march hands the field (rays x samples per ray)",
+    "ngp.march.valid": "valid samples among them (the compositor's n_samples, on the device)",
+    "launch.fused_mlp": "narrow fused-MLP forward kernel launches",
+    "launch.fused_mlp_bwd": "narrow fused-MLP backward kernel launches",
+    "launch.fused_mlp_wide": "wide fused-MLP forward kernel launches",
+    "launch.fused_mlp_wide_bwd": "wide fused-MLP backward launches (chain, dW, sum)",
+    "launch.brick_encode": "brick3 encode forward kernel launches",
+    "launch.brick_encode_bwd": "brick3 encode backward kernel launches",
+    "launch.gather_rows": "grid probe gather_rows launches",
+    "launch.gather_lanes": "grid probe gather_lanes launches",
+    "launch.scatter_add_rows": "grid probe scatter_add_rows launches",
+    "launch.smem_scratch": "grid probe smem_scratch launches",
+}
+
+_recording = torch._C._autograd._profiler_enabled
+_record = torch._C._profiler._RecordFunctionFast
+_NULL = contextlib.nullcontext()
+
+_totals: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
+_traced: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
+_traced_device: Dict[str, List[torch.Tensor]] = {k: [] for k in COUNTERS}
+
+
+def span(name: str):
+    """A span named ``name`` (declared in SPANS) while a torch profiler
+    records, else the shared null context."""
+    assert name in SPANS, f"undeclared span {name!r}"
+    return _record(name) if _recording() else _NULL
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` (a host int, or a device scalar tensor) to counter
+    ``name`` (declared in COUNTERS): a host int to the totals, and while a
+    profiler records, ``n`` to the traced totals. A tensor costs no kernel
+    and no sync: it is kept and summed when read."""
+    assert name in COUNTERS, f"undeclared counter {name!r}"
+    tensor = isinstance(n, torch.Tensor)
+    if not tensor:
+        _totals[name] += n
+    if _recording():
+        if tensor:
+            _traced_device[name].append(n)
+        else:
+            _traced[name] += n
+
+
+def counts(traced: bool = False) -> Dict[str, int]:
+    """Every declared counter's total since the last reset: of the host
+    ints, or with ``traced`` of everything counted while a profiler
+    recorded (a read of the kept device scalars: one sync)."""
+    if not traced:
+        return dict(_totals)
+    out = dict(_traced)
+    for name, ts in _traced_device.items():
+        if ts:
+            out[name] += int(torch.stack([t.reshape(()) for t in ts]).sum())
+    return out
+
+
+def reset() -> None:
+    """Zero every counter, traced or not."""
+    for name in COUNTERS:
+        _totals[name] = _traced[name] = 0
+        _traced_device[name].clear()
+
+
+# -- device time ----------------------------------------------------------------
 
 TOP = 12  # device events listed by name; the rest are summed as other_ms
 
@@ -61,39 +165,6 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     return {"wall_ms": 1e3 * wall, "device_ms": busy / 1e3, "events": len(spans),
             "kernels": {k: v for k, v in ranked[:TOP]},
             "other_ms": sum(v[0] for _, v in ranked[TOP:]), "by_name": dict(ranked)}
-
-
-def render_chunk_split(trainer, rays_o: torch.Tensor, rays_d: torch.Tensor,
-                       bg: torch.Tensor) -> Dict[str, float]:
-    """Each stage of one render chunk, timed alone through the functions
-    the render calls (median_ms: CUDA events around a call, host time
-    included where the host is the slower), and the whole chunk;
-    ``mlp_device`` is the MLP stage's device time alone (graph_ms)."""
-    from ..render.ngp_render import composite_marched, march_rays_fused, render_marched
-
-    model, rcfg, occ = trainer.model, trainer.rcfg, trainer.state.occ
-    out: Dict[str, float] = {}
-    with torch.no_grad():
-        def march():
-            return march_rays_fused(trainer.occ_cfg, rcfg, occ, rays_o, rays_d,
-                                    n_samples=rcfg.n_samples)
-
-        marched = march()
-        pos = marched.positions.reshape(-1, 3)
-        dirs = marched.dirs.reshape(-1, 3)
-        inputs = model.net_inputs(pos, dirs)
-        raw = model(pos, dirs).reshape(*marched.positions.shape[:2], 4)
-
-        out["march"] = median_ms(march)
-        out["encode"] = median_ms(lambda: model.encode(pos))
-        out["sh"] = median_ms(lambda: model.encode_dirs(dirs))
-        out["mlp"] = median_ms(lambda: model.net(*inputs))
-        out["mlp_device"] = graph_ms(lambda: model.net(*inputs))
-        out["composite"] = median_ms(lambda: composite_marched(raw, marched, bg,
-                                                               rcfg.early_stop_eps))
-        out["chunk"] = median_ms(lambda: render_marched(model, march(), bg,
-                                                        rcfg.early_stop_eps))
-    return out
 
 
 def wall_ms(fn: Callable[[], object]) -> float:

@@ -13,6 +13,13 @@ from myc_nerfs_tpu_torch.models import ngp
 from myc_nerfs_tpu_torch.ops import brick_grid as bg
 from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
 from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
+from myc_nerfs_tpu_torch.utils import profiling
+
+
+def launches(kernel: str) -> int:
+    """The registry's launch count of ``kernel`` (utils/profiling.py)."""
+    return profiling.counts(traced=False)[f"launch.{kernel}"]
+
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -100,12 +107,12 @@ def _assert_table_grads(grads, refs, tables):
 @pytest.mark.parametrize("n", N_SAMPLES)
 def test_brick_encode_matches_plain(cuda_device, grid, dtype, n, layout):
     cfg, levels, groups, tables, pos = _setup(grid, n, cuda_device, layout=layout)
-    before = ge.brick_encode.launches
+    before = launches("brick_encode")
     with torch.no_grad():
         out = ge.brick_encode(tables, pos, cfg, levels, groups, dtype)
         ref = bg.paired_encode_reference(tables, pos, cfg, levels, groups, dtype)
     torch.cuda.synchronize()
-    assert ge.brick_encode.launches == before + 1
+    assert launches("brick_encode") == before + 1
     assert out.dtype == dtype and out.shape == (n, cfg.out_dim)
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= ge.FWD_TOL[dtype] * scale
@@ -124,11 +131,11 @@ def test_brick_encode_backward_matches_plain(cuda_device, grid, dtype, n, layout
                     generator=torch.Generator(cuda_device).manual_seed(2)).to(dtype)
     g[::7] = 0.0
     g[2::5, :cfg.n_features] = 0.0
-    before = ge.brick_encode_backward.launches
+    before = launches("brick_encode_bwd")
     grads = ge.brick_encode_backward(tables, pos, g, cfg, levels, groups, dtype)
     refs = bg.paired_encode_backward_reference(tables, pos, g, cfg, levels, groups, dtype)
     torch.cuda.synchronize()
-    assert ge.brick_encode_backward.launches == before + 1
+    assert launches("brick_encode_bwd") == before + 1
     _assert_table_grads(grads, refs, tables)
 
 
@@ -164,10 +171,10 @@ def test_paired_encode_autograd_on_gpu(cuda_device, dtype):
     for dev in ("cuda", "cpu"):
         ts = [t.detach().to(dev).requires_grad_() for t in tables]
         p = pos.detach().to(dev).requires_grad_()
-        f0, b0 = ge.brick_encode.launches, ge.brick_encode_backward.launches
+        f0, b0 = launches("brick_encode"), launches("brick_encode_bwd")
         out = bg.paired_encode(ts, p, cfg, levels, groups, compute_dtype=dtype)
         (out.float() * g.to(dev)).sum().backward()
-        launched = (ge.brick_encode.launches - f0, ge.brick_encode_backward.launches - b0)
+        launched = (launches("brick_encode") - f0, launches("brick_encode_bwd") - b0)
         assert launched == ((1, 1) if dev == "cuda" else (0, 0))
         assert p.grad is None
         grads[dev] = [t.grad.cpu() for t in ts]
@@ -199,10 +206,10 @@ def test_broken_build_raises_and_is_not_replaced(cuda_device, tmp_path):
     ge._library.cache_clear()
     ge.SOURCE = broken
     try:
-        before = ge.brick_encode.launches
+        before = launches("brick_encode")
         with pytest.raises(RuntimeError, match="nvcc failed"):
             bg.paired_encode(tables, pos, cfg, levels, groups)
-        assert ge.brick_encode.launches == before
+        assert launches("brick_encode") == before
     finally:
         ge.SOURCE = source
         ge._library.cache_clear()
@@ -215,9 +222,9 @@ def test_gather_rows_matches_plain(cuda_device, dtype, n):
     g = torch.Generator(cuda_device).manual_seed(0)
     tab = torch.randn((4096, 256), device=cuda_device, generator=g).to(dtype)
     idx = torch.randint(0, 4096, (n,), device=cuda_device, generator=g, dtype=torch.int32)
-    before = gp.gather_rows.launches
+    before = launches("gather_rows")
     out = gp.gather_rows(tab, idx)
-    assert gp.gather_rows.launches == before + 1
+    assert launches("gather_rows") == before + 1
     assert torch.equal(out, gp.gather_rows_reference(tab, idx))
 
 
@@ -227,9 +234,9 @@ def test_gather_lanes_matches_plain(cuda_device, shape):
     tab = torch.randn(shape, device=cuda_device, generator=g)
     idx = torch.randint(0, shape[1], (shape[0], 2 * shape[1]), device=cuda_device,
                         generator=g, dtype=torch.int32)
-    before = gp.gather_lanes.launches
+    before = launches("gather_lanes")
     out = gp.gather_lanes(tab, idx)
-    assert gp.gather_lanes.launches == before + 1
+    assert launches("gather_lanes") == before + 1
     assert torch.equal(out, gp.gather_lanes_reference(tab, idx))
 
 
@@ -239,28 +246,28 @@ def test_scatter_add_rows_matches_plain(cuda_device, n):
     g = torch.Generator(cuda_device).manual_seed(2)
     idx = torch.randint(0, 4096, (n,), device=cuda_device, generator=g, dtype=torch.int32)
     val = torch.randn((n, 256), device=cuda_device, generator=g)
-    before = gp.scatter_add_rows.launches
+    before = launches("scatter_add_rows")
     out = gp.scatter_add_rows(idx, val, 4096)
-    assert gp.scatter_add_rows.launches == before + 1
+    assert launches("scatter_add_rows") == before + 1
     ref = gp.scatter_add_rows_reference(idx, val, 4096)
     assert (out - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("kb", [1, 16, 100, 227])
 def test_smem_scratch(cuda_device, kb):
-    before = gp.smem_scratch.launches
+    before = launches("smem_scratch")
     out = gp.smem_scratch(kb * 1024, cuda_device)
-    assert gp.smem_scratch.launches == before + 1
+    assert launches("smem_scratch") == before + 1
     assert torch.equal(out.cpu(), gp.smem_scratch_reference(kb * 1024, "cpu"))
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(cuda_device):
     """228 KB is more shared memory than a Hopper block may have: the
     refusal raises (and leaves no error behind for the next launch)."""
-    before = gp.smem_scratch.launches
+    before = launches("smem_scratch")
     with pytest.raises(RuntimeError, match="smem_scratch kernel launch failed"):
         gp.smem_scratch(228 * 1024, cuda_device)
-    assert gp.smem_scratch.launches == before
+    assert launches("smem_scratch") == before
     assert gp.smem_scratch(16 * 1024, cuda_device).item() == 2.0
     tab = torch.randn((64, 256), device=cuda_device)
     with pytest.raises(TypeError, match="int32"):

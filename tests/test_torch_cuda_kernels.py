@@ -11,7 +11,13 @@ import pytest
 import torch
 
 from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
-from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+from myc_nerfs_tpu_torch.utils import profiling
+
+
+def launches(kernel: str) -> int:
+    """The registry's launch count of ``kernel`` (utils/profiling.py)."""
+    return profiling.counts(traced=False)[f"launch.{kernel}"]
+
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -50,12 +56,12 @@ ROWS = [1, 15, 16, 17, 63, 64, 65, 1000, 70001, 262144]
 @pytest.mark.parametrize("rows", ROWS)
 def test_fused_mlp_matches_plain(cuda_device, widths, dtype, rtol, rows):
     x, ws = _net(widths, rows, dtype, cuda_device)
-    before = fm.fused_mlp.launches
+    before = launches("fused_mlp")
     with torch.no_grad():
         out = fm.fused_mlp(x, ws)
         ref = fm.fused_mlp_reference(x, ws)
     torch.cuda.synchronize()
-    assert fm.fused_mlp.launches == before + 1
+    assert launches("fused_mlp") == before + 1
     assert out.dtype == dtype and out.shape == (rows, widths[-1])
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
@@ -115,12 +121,12 @@ def test_fused_mlp_wide_matches_plain(cuda_device, widths, dtype, rtol, rows):
     """Chains above 64 wide take the wide kernel (its counter, not the
     narrow one's): random inputs, as test_fused_mlp_matches_plain."""
     x, ws = _net(widths, rows, dtype, cuda_device)
-    before = fm.fused_mlp_wide.launches, fm.fused_mlp.launches
+    before = launches("fused_mlp_wide"), launches("fused_mlp")
     with torch.no_grad():
         out = fm.fused_mlp(x, ws)
         ref = fm.fused_mlp_reference(x, ws)
     torch.cuda.synchronize()
-    assert (fm.fused_mlp_wide.launches, fm.fused_mlp.launches) == (before[0] + 1, before[1])
+    assert (launches("fused_mlp_wide"), launches("fused_mlp")) == (before[0] + 1, before[1])
     assert out.dtype == dtype and out.shape == (rows, widths[-1])
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
@@ -133,13 +139,13 @@ def test_fused_mlp_wide_backward_exact_inputs(cuda_device, widths, dtype, rows):
     """On fm.exact_inputs (integers: every sum exact, so any order gives
     the same bits): y, dx and every dW equal to the plain versions' bits."""
     x, ws, g = fm.exact_inputs(widths, rows, dtype, cuda_device)
-    before = fm.fused_mlp_wide_backward.launches
+    before = launches("fused_mlp_wide_bwd")
     with torch.no_grad():
         y, y_ref = fm.fused_mlp(x, ws), fm.fused_mlp_reference(x, ws)
     dx, dws = fm.fused_mlp_backward(x, ws, g)
     dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_wide_backward.launches == before + 1
+    assert launches("fused_mlp_wide_bwd") == before + 1
     assert torch.equal(y, y_ref) and torch.equal(dx, dx_ref)
     for a, b in zip(dws, dws_ref):
         assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
@@ -251,13 +257,13 @@ def test_ori_nerf_fused_on_gpu_matches_cpu(cuda_device, use_bf16):
     rng = np.random.default_rng(1)
     pos = torch.from_numpy(rng.uniform(0, 1, (4000, 3)).astype(np.float32))
     dirs = torch.from_numpy(rng.uniform(0, 1, (4000, 3)).astype(np.float32))
-    before = fm.fused_mlp_wide.launches, fm.fused_mlp_wide_backward.launches
+    before = launches("fused_mlp_wide"), launches("fused_mlp_wide_bwd")
     outs = []
     for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
         out = model(pos.to(dev), dirs.to(dev))
         grads = torch.autograd.grad((out ** 2).sum(), model.param_list())
         outs.append([out.detach().float().cpu()] + [g.float().cpu() for g in grads])
-    assert (fm.fused_mlp_wide.launches, fm.fused_mlp_wide_backward.launches) == \
+    assert (launches("fused_mlp_wide"), launches("fused_mlp_wide_bwd")) == \
         (before[0] + 1, before[1] + 1)
     for a, b in zip(outs[1], outs[0]):
         if use_bf16:
@@ -280,12 +286,12 @@ def test_ngp_model_on_gpu_matches_cpu(cuda_device):
     rng = np.random.default_rng(1)
     pos = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
     dirs = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
-    before = fm.fused_mlp.launches, ge.brick_encode.launches
+    before = launches("fused_mlp"), launches("brick_encode")
     with torch.no_grad():
         ref = cpu(pos, dirs)
         out = gpu(pos.to(cuda_device), dirs.to(cuda_device)).cpu()
     # density and rgb MLPs, one encode
-    assert (fm.fused_mlp.launches, ge.brick_encode.launches) == (before[0] + 2,
+    assert (launches("fused_mlp"), launches("brick_encode")) == (before[0] + 2,
                                                                  before[1] + 1)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
 
@@ -312,11 +318,11 @@ BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 def test_fused_mlp_backward_matches_plain(cuda_device, widths, dtype, rows):
     x, ws = _net(widths, rows, dtype, cuda_device)
     g = _grad_out(rows, widths[-1], dtype, cuda_device)
-    before = fm.fused_mlp_backward.launches
+    before = launches("fused_mlp_bwd")
     dx, dws = fm.fused_mlp_backward(x, ws, g)
     dx_ref, dws_ref = fm.fused_mlp_backward_reference(x, ws, g)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_backward.launches == before + 1
+    assert launches("fused_mlp_bwd") == before + 1
     tol_dx, tol_dw = BWD_TOL[dtype]
     assert dx.dtype == dtype and dx.shape == x.shape
     scale = max(1.0, dx_ref.float().abs().max().item())
@@ -339,9 +345,9 @@ def test_fused_mlp_autograd_on_gpu(cuda_device):
     for dev in ("cuda", "cpu"):
         xs = x.detach().to(dev).requires_grad_()
         wss = [w.detach().to(dev).requires_grad_() for w in ws]
-        f0, b0 = fm.fused_mlp.launches, fm.fused_mlp_backward.launches
+        f0, b0 = launches("fused_mlp"), launches("fused_mlp_bwd")
         (fm.fused_mlp(xs, wss) * g.to(dev)).sum().backward()
-        launched = (fm.fused_mlp.launches - f0, fm.fused_mlp_backward.launches - b0)
+        launched = (launches("fused_mlp") - f0, launches("fused_mlp_bwd") - b0)
         assert launched == ((1, 1) if dev == "cuda" else (0, 0))
         grads[dev] = [xs.grad.cpu()] + [w.grad.cpu() for w in wss]
     for a, b in zip(grads["cuda"], grads["cpu"]):
@@ -371,13 +377,13 @@ def test_ngp_model_gradient_on_gpu_matches_cpu(cuda_device):
     pos = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
     dirs = torch.from_numpy(rng.uniform(0, 1, (5000, 3)).astype(np.float32))
     tgt = torch.from_numpy(rng.standard_normal((5000, 4)).astype(np.float32))
-    before = fm.fused_mlp_backward.launches, ge.brick_encode_backward.launches
+    before = launches("fused_mlp_bwd"), launches("brick_encode_bwd")
     ((cpu(pos, dirs) - tgt) ** 2).sum().backward()
     ((gpu(pos.to(cuda_device), dirs.to(cuda_device)) - tgt.to(cuda_device))
      ** 2).sum().backward()
     # density and rgb MLPs, one encode
-    assert (fm.fused_mlp_backward.launches,
-            ge.brick_encode_backward.launches) == (before[0] + 2, before[1] + 1)
+    assert (launches("fused_mlp_bwd"),
+            launches("brick_encode_bwd")) == (before[0] + 2, before[1] + 1)
     for (name, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
         scale = max(1e-6, b.grad.abs().max().item())
         err = (a.grad.cpu() - b.grad).abs().max().item()

@@ -13,6 +13,13 @@ from myc_nerfs_tpu_torch.models import ngp as tngp
 from myc_nerfs_tpu_torch.ops import brick_grid as tbg
 from myc_nerfs_tpu_torch.ops.cuda import _build
 from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
+from myc_nerfs_tpu_torch.utils import profiling
+
+
+def launches(kernel: str) -> int:
+    """The registry's launch count of ``kernel`` (utils/profiling.py)."""
+    return profiling.counts(traced=False)[f"launch.{kernel}"]
+
 
 torch.set_num_threads(1)
 
@@ -200,11 +207,11 @@ def test_gradcheck_f64():
 
 def test_cpu_path_counts_no_launches_and_passes_no_position_gradient():
     _, tgeo, tables, pos = _setup(3, 50, seed=70)
-    before = ge.brick_encode.launches, ge.brick_encode_backward.launches
+    before = launches("brick_encode"), launches("brick_encode_bwd")
     ts = [torch.from_numpy(t).requires_grad_() for t in tables]
     p = torch.from_numpy(pos).requires_grad_()
     tbg.paired_encode(ts, p, *tgeo).sum().backward()
-    assert (ge.brick_encode.launches, ge.brick_encode_backward.launches) == before
+    assert (launches("brick_encode"), launches("brick_encode_bwd")) == before
     assert p.grad is None and all(t.grad is not None for t in ts)
 
 
