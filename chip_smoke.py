@@ -2,8 +2,8 @@
 
 Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: compiles the three sources under myc_nerfs_tpu_torch/csrc/
-   (fused_mlp.cu, grid_encode.cu, grid_probe.cu) with nvcc, all at once,
+2. build: compiles the four sources under myc_nerfs_tpu_torch/csrc/
+   (fused_mlp.cu, grid_encode.cu, grid_probe.cu, march.cu) with nvcc, all at once,
    and prints each one's build time; then counts, in the built libraries'
    SASS (cuobjdump -sass), the tensor-core instructions of the fused-MLP
    kernels, HMMA (mma.sync) in the narrow bf16 ones and HGMMA (wgmma) in
@@ -40,6 +40,23 @@ Phases, each ending in one line (a failure exits non-zero):
    the march's valid samples, the train step's gradient pattern
    (ms_masked); a diagnostic line splits both times by level group (g
    zero outside one group's columns).
+5b. march: the fused NGP march kernel (csrc/march.cu, through
+   render/ngp_render.py::march_rays_fused) against march_rays_fused_plain on
+   Car's cascaded grid (the seeded model after 16 grid updates, and the same
+   grid with its values x MARCH_DENSE, where rays truncate) at n_coarse 512
+   and 64 samples, at the main path's two shapes: one render chunk (~4096
+   rays through a frame, xi None) and a training batch (MARCH_TRAIN_RAYS
+   rays of random pixels, xi drawn). Every output must equal the plain
+   version's bit for bit on every ray but those whose coarse logT_prev lies
+   within the two summation orders' rounding of log(eps)
+   (tests/test_torch_cuda_march.py), at most one in a thousand; the device
+   time (graph_ms) and the call's (median_ms) of both, and the bound of the
+   bytes the kernel must write and read (march_bound). Then the backward
+   kernel at the training batch: the gradient of a random linear function
+   of the outputs to rays_o, rays_d and xi against autograd through the
+   plain version (the card tests' per-ray tolerance), and the backward's
+   time against the plain version's (median_ms: autograd runs it on the
+   forward's stream, outside a graph capture).
 6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
    line each, with their library calls and bounds; every probe must be
    correct. The kernels line's gather_lanes entry is the 65536x128 probe
@@ -49,7 +66,8 @@ Phases, each ending in one line (a failure exits non-zero):
    weights, 16 occupancy-grid updates, then two 800x800 frames rendered
    along the spherical path; the frames must be finite and not all
    background, and the grid updates and the render must each have run
-   the encode and MLP kernels. One chunk of rays is rendered again
+   the encode and MLP kernels, and the march kernel once per 4096-ray
+   chunk. One chunk of rays is rendered again
    through the plain encode and MLP and compared.
 8. train: the same Car config on the synthetic scene (12 views at
    128x128; the model and training settings as the file gives them)
@@ -170,10 +188,11 @@ Phases, each ending in one line (a failure exits non-zero):
    view's PSNR, test-time iterations, stop reason and ms per iteration.
 23. pose_chain: cli/pose_chain, the slice's main path, at L16F2 width cut to
    CHAIN_ARGV (GARF 512 steps, NGP 256 per leg, 128^2, 12 views, tt 100):
-   each NGP leg's train PSNR must rise and the four NGP kernels run; on
-   view 0 of the gt leg, d loss / d se3 through the kernels against the
-   plain versions within CHAIN_GRAD_TOL; the test-time backward kernel's
-   time at its rows (its dW is discarded).
+   each NGP leg's train PSNR must rise, the four NGP kernels run, and the
+   march kernel and its backward (test-time optimisation) run; on view 0
+   of the gt leg, d loss / d se3 through the kernels against the plain
+   versions (march_rays_fused_plain for the march) within CHAIN_GRAD_TOL;
+   the test-time backward kernel's time at its rows (its dW is discarded).
 24. tensorf_budget: cli/tensorf_budget on Coffee.txt at 128^2, 12 views,
    BUDGET_STEPS steps straight (twice) and split by --stop_at / --resume:
    the split run equals the straight one within BUDGET_SPLIT_FACTOR times
@@ -255,6 +274,10 @@ PSNR_RISE = 9.0
 GRAD_REL_TOL = 2.0 ** -7
 TABLE_GRAD_REL_TOL = 1e-5
 ENCODE_RAYS, ENCODE_SAMPLES = 4096, 64   # one chunk of the Car render
+# phase 5b: the training batch's rays (the NGP train cell settles at 15.9-22.4 k
+# rays a step) and the factor on the grid's values of its denser state
+MARCH_TRAIN_RAYS = 20480
+MARCH_DENSE = 64.0
 BOUNDARY_PER_LEVEL = 1024                # boundary positions per level
 SPLIT_BATCHES = 2                        # batches checked at each state (phase 10)
 # the narrow bf16 kernels run mma.sync (SASS HMMA), the wide bf16 ones and
@@ -385,8 +408,9 @@ def dtype_name(dtype) -> str:
 # every kernel of the port, by its name in the JSON line (the registry's
 # counter is launch.<name>)
 KERNELS = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide", "fused_mlp_wide_bwd",
-           "brick_encode", "brick_encode_bwd", "gather_rows", "gather_lanes",
-           "scatter_add_rows", "smem_scratch")
+           "brick_encode", "brick_encode_bwd", "march_rays_fused", "march_rays_fused_bwd",
+           "gather_rows",
+           "gather_lanes", "scatter_add_rows", "smem_scratch")
 
 
 def reset_launches() -> None:
@@ -406,8 +430,9 @@ def phase_build() -> None:
     from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
     from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
     from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
+    from myc_nerfs_tpu_torch.ops.cuda import march as mc
 
-    modules = (fm, ge, gp)
+    modules = (fm, ge, gp, mc)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         builds = [pool.submit(m.build) for m in modules]
@@ -716,6 +741,163 @@ def phase_kernel_encode():
     return fwd, bwd
 
 
+def march_inputs():
+    """Car's trainer (seeded weights) after 16 grid updates; its occupancy
+    state and a denser one (the grid's values x MARCH_DENSE, the bitfield
+    and mean re-derived), and the main path's two batches, each (rays_o,
+    rays_d, xi, K): one render chunk through a frame (xi None, n_samples)
+    and MARCH_TRAIN_RAYS rays of random pixels of 8 views (xi drawn,
+    n_compact)."""
+    from myc_nerfs_tpu_torch.cli import run_net
+    from myc_nerfs_tpu_torch.core.config import load_config
+    from myc_nerfs_tpu_torch.geom import rays as rays_lib
+    from myc_nerfs_tpu_torch.geom.camera_path import path_spherical
+    from myc_nerfs_tpu_torch.render import occupancy as occ
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    trainer, _ = run_net.build_trainer(load_config("configs/ngp/Car.py"), gen,
+                                       device="cuda")
+    with torch.no_grad():
+        for _ in range(16):
+            trainer.state = trainer.state._replace(
+                occ=trainer.grid_update(trainer.state.occ, gen))
+        grid = trainer.state.occ
+        dense = torch.where(grid.density_grid < 0, grid.density_grid,
+                            grid.density_grid * MARCH_DENSE)
+        bits, mean = occ.update_bitfield(trainer.occ_cfg, dense)
+        states = {"grid": grid, f"grid_x{MARCH_DENSE:g}": grid._replace(
+            density_grid=dense, bitfield=bits, mean_density=mean)}
+        poses = [run_net.path_pose(p).to("cuda") for p in path_spherical(8)]
+        render_o, render_d = chunk_rays(poses[0])
+        d = rays_lib.get_ray_directions(H, W, (W * 0.6, W * 0.6), device="cuda").reshape(-1, 3)
+        view = torch.randint(0, len(poses), (MARCH_TRAIN_RAYS,), device="cuda", generator=gen)
+        pix = torch.randint(0, H * W, (MARCH_TRAIN_RAYS,), device="cuda", generator=gen)
+        c2w = torch.stack(poses)[view]
+        train_d = (c2w[:, :3, :3] @ d[pix][:, :, None])[..., 0]
+        train_d = train_d / torch.linalg.norm(train_d, dim=-1, keepdim=True)
+        xi = torch.rand((MARCH_TRAIN_RAYS, 1), device="cuda", generator=gen)
+    rcfg = trainer.rcfg
+    batches = {"render": (render_o, render_d, None, rcfg.n_samples),
+               "train": (c2w[:, :3, 3].contiguous(), train_d, xi, rcfg.n_compact)}
+    return trainer, states, batches
+
+
+def march_bound(n_rays: int, n_samples: int, has_xi: bool) -> dict:
+    """The H100 bound of the bytes the march kernel must move for n_rays
+    rays of n_samples samples, each once: the rays (and the jitter) in,
+    positions, t, valid, dt and dirs out. The density-grid probes are left
+    out: the grid stays in the L2."""
+    from myc_nerfs_tpu_torch.utils.timing import roofline
+
+    nbytes = n_rays * (24 + (4 if has_xi else 0) + 4 + 12) + n_rays * n_samples * (12 + 4 + 1)
+    return roofline(0, nbytes, torch.float32)
+
+
+def phase_march():
+    """Phase 5b: the march kernel and its backward against
+    march_rays_fused_plain. Returns the forward's and the backward's
+    entries of the kernels line."""
+    from myc_nerfs_tpu_torch.render import ngp_render as nr
+
+    tests = march_card_tests()
+    trainer, states, batches = march_inputs()
+    occ_cfg, rcfg = trainer.occ_cfg, trainer.rcfg
+    eps = rcfg.early_stop_eps
+    near = 2 * (rcfg.n_coarse - 1) * 2.0 ** -24 * abs(float(np.log(np.float32(eps))))
+    stats = {}
+    for sname, state in states.items():
+        for bname, (o, d, xi, K) in batches.items():
+            def kernel():
+                return nr.march_rays_fused(occ_cfg, rcfg, state, o, d, xi, n_samples=K)
+
+            def plain(trunc_eps=None):
+                return nr.march_rays_fused_plain(occ_cfg, rcfg, state, o, d, xi,
+                                                 n_samples=K, trunc_eps=trunc_eps)
+
+            N = o.shape[0]
+            with torch.no_grad():
+                got, want = kernel(), plain()
+                same = torch.ones(N, dtype=torch.bool, device="cuda")
+                for a, b in zip(got, want):
+                    a, b = a.contiguous(), b.contiguous()
+                    if a.dtype == torch.float32:
+                        a, b = a.view(torch.int32), b.view(torch.int32)
+                    same &= (a == b).reshape(N, -1).all(1)
+                differing = ~same
+                margin = tests.truncation_margin(occ_cfg, rcfg, state, o, d)
+                near_rays = margin <= near
+                truncated = (plain(0.0).valid != want.valid).any(1)
+                t_k = graph_ms(kernel)
+                t_c = median_ms(kernel)
+                t_p = graph_ms(plain)
+                t_pc = median_ms(plain)
+            work = march_bound(N, K, xi is not None)
+            n_diff, n_far = int(differing.sum()), int((differing & ~near_rays).sum())
+            ok = n_far == 0 and n_diff <= max(1, N // 1000)
+            print(f"march: {bname} {N}x{K} n_coarse={rcfg.n_coarse} state={sname} "
+                  f"valid={got.valid.float().mean().item():.4f} "
+                  f"truncated_rays={int(truncated.sum())} differing_rays={n_diff} "
+                  f"near_boundary_rays={int(near_rays.sum())} (margin <= {near:.3e}) "
+                  f"differing_off_boundary={n_far} {'ok' if ok else 'BREACH'} "
+                  f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
+                  f"plain_call_ms={t_pc:.4f}", flush=True)
+            if not ok:
+                fail(f"march kernel {bname} on {sname}: {n_diff} rays differ, "
+                     f"{n_far} away from the truncation boundary")
+            if sname == "grid" and bname == "render":
+                stats = {"differing_rays": n_diff, "ms": t_k,
+                         "call_ms": t_c, "plain_ms": t_p, "plain_call_ms": t_pc,
+                         "library_ms": None, "bound_ms": work["bound_ms"],
+                         "bound_by": work["bound_by"]}
+            if bname == "train":
+                bwd = march_backward(tests, nr, occ_cfg, rcfg, state, o, d, xi, K, ~differing,
+                                     sname)
+                if sname == "grid":
+                    bwd_stats = bwd
+    return stats, bwd_stats
+
+
+def march_card_tests():
+    """tests/test_torch_cuda_march.py, loaded from its path, for the helpers
+    phase_march shares with the card tests (truncation_margin, march_loss,
+    rays_off)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_cuda_march.py"
+    spec = importlib.util.spec_from_file_location("test_torch_cuda_march", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def march_backward(tests, nr, occ_cfg, rcfg, state, o, d, xi, K, keep, sname: str) -> dict:
+    """The march's backward kernel against autograd through the plain
+    version at one batch: the gradients' agreement on the rays ``keep``
+    (whose forward outputs are equal), and both backwards' times."""
+    def backward(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (o, d, xi)]
+        out = fn(occ_cfg, rcfg, state, *leaves, n_samples=K)
+        loss = tests.march_loss(out, torch.Generator(device="cuda").manual_seed(5))
+        return leaves, loss
+
+    k_leaves, k_loss = backward(nr.march_rays_fused)
+    p_leaves, p_loss = backward(nr.march_rays_fused_plain)
+    got = torch.autograd.grad(k_loss, k_leaves, retain_graph=True)
+    want = torch.autograd.grad(p_loss, p_leaves, retain_graph=True)
+    off = {name: int((keep & rays).sum()) for name, rays in tests.rays_off(got, want).items()}
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    t_k = median_ms(lambda: torch.autograd.grad(k_loss, k_leaves, retain_graph=True))
+    t_p = median_ms(lambda: torch.autograd.grad(p_loss, p_leaves, retain_graph=True))
+    ok = finite and not any(off.values())
+    print(f"march_bwd: train {o.shape[0]}x{K} state={sname} rays off the plain gradient "
+          f"{off} finite={finite} {'ok' if ok else 'BREACH'} backward call_ms={t_k:.4f} "
+          f"plain_call_ms={t_p:.4f}", flush=True)
+    if not ok:
+        fail(f"march backward on {sname}: gradients off the plain version's {off}")
+    return {"rays_off_plain_gradient": off, "call_ms": t_k, "plain_call_ms": t_p,
+            "library_ms": None}
+
+
 # each probe kernel's entry in the JSON line: the probe record it takes its
 # numbers from
 PROBE_RECORDS = {"gather_rows": "gather_rows_float32",
@@ -805,7 +987,8 @@ def phase_slice(card: str):
           f"grid_update_launches fused_mlp={grid_launches['fused_mlp']} "
           f"brick_encode={grid_launches['brick_encode']} "
           f"render_launches fused_mlp={launches['fused_mlp']} "
-          f"brick_encode={launches['brick_encode']} [{card}]", flush=True)
+          f"brick_encode={launches['brick_encode']} "
+          f"march_rays_fused={launches['march_rays_fused']} [{card}]", flush=True)
     if tuple(rgb.shape) != (FRAMES, H, W, 3) or not torch.isfinite(rgb).all():
         fail("render output is not finite or has the wrong shape")
     if non_bg < 1e-3:
@@ -813,6 +996,10 @@ def phase_slice(card: str):
     for name, counts in (("grid update", grid_launches), ("render", launches)):
         if counts["fused_mlp"] == 0 or counts["brick_encode"] == 0:
             fail(f"the {name} did not run the fused_mlp and brick_encode kernels")
+    chunks = FRAMES * math.ceil(H * W / 4096)
+    if launches["march_rays_fused"] != chunks:
+        fail(f"the render ran the march kernel {launches['march_rays_fused']} times, "
+             f"not once per chunk ({chunks})")
 
     # the same rays through the plain encode and MLP: the slice agrees with
     # its reference path (bf16 both ways; see TOL for the rounding allowance)
@@ -2622,24 +2809,29 @@ def phase_evaluate(card: str):
 def chain_pose_gradient(trainer, scene, vi: int, n_rays: int, kernels: bool):
     """d loss / d se3 of cli/pose_chain's test-time loss at se3 = 0 on view
     vi, through the kernels or through the plain versions."""
+    from unittest import mock
+
     from myc_nerfs_tpu_torch.cli import pose_chain as pc
     from myc_nerfs_tpu_torch.evaluation.test_time_optim import make_ngp_pose_loss
+    from myc_nerfs_tpu_torch.render import ngp_render as nr
 
     model = trainer.model
     model.use_encode_kernel = kernels
     model.net.use_fully = kernels
+    march = nr.march_rays_fused if kernels else nr.march_rays_fused_plain
     try:
-        loss_fn = make_ngp_pose_loss(trainer.occ_cfg, trainer.rcfg, model, trainer.state.occ,
-                                     scene.poses[vi].cuda(), scene.intr[vi].cuda(),
-                                     scene.images[vi].cuda(), scene.H, scene.W,
-                                     world_scale=pc.SCALE, world_offset=pc.OFF,
-                                     bg=torch.ones(3, device="cuda"),
-                                     density_apply=model.density_raw)
-        idx = torch.randint(0, scene.H * scene.W, (n_rays,), device="cuda",
-                            generator=torch.Generator(device="cuda").manual_seed(vi))
-        x = torch.zeros((1, 6), device="cuda", requires_grad=True)
-        loss = loss_fn(x, idx)
-        (g,) = torch.autograd.grad(loss, x)
+        with mock.patch.object(nr, "march_rays_fused", march):
+            loss_fn = make_ngp_pose_loss(trainer.occ_cfg, trainer.rcfg, model, trainer.state.occ,
+                                         scene.poses[vi].cuda(), scene.intr[vi].cuda(),
+                                         scene.images[vi].cuda(), scene.H, scene.W,
+                                         world_scale=pc.SCALE, world_offset=pc.OFF,
+                                         bg=torch.ones(3, device="cuda"),
+                                         density_apply=model.density_raw)
+            idx = torch.randint(0, scene.H * scene.W, (n_rays,), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(vi))
+            x = torch.zeros((1, 6), device="cuda", requires_grad=True)
+            loss = loss_fn(x, idx)
+            (g,) = torch.autograd.grad(loss, x)
     finally:
         model.use_encode_kernel = True
         model.net.use_fully = True
@@ -2695,7 +2887,8 @@ def phase_pose_chain(card: str):
            or not np.isfinite(leg["val_psnrs"] + leg["val_psnrs_tt"]).all()]
     if set(legs) != set(pc.LEGS) or bad:
         fail(f"pose_chain: a leg is missing or its train PSNR did not rise: {bad}")
-    if not all(launches[k] > 0 for k in TRAIN_KERNELS):
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("march_rays_fused",
+                                                          "march_rays_fused_bwd")):
         fail(f"pose_chain: an NGP kernel did not run: {launches}")
     trainer, scene = legs["gt"]["trainer"], res["scene"]
     n_rays = pc.parse_args(CHAIN_ARGV).tt_rays
@@ -3016,6 +3209,9 @@ KERNELS = {
     "brick_encode": ("grid_encode.cu", "scripts/probe_r2d_chunked.py:79",
                      ["scripts/probe_r2c_rates.py:187", "scripts/probe_r2f_scale.py:40"]),
     "brick_encode_bwd": ("grid_encode.cu", "scripts/probe_r2d_chunked.py:162", []),
+    # no Pallas kernel: the JAX package's march is XLA
+    "march_rays_fused": ("march.cu", "myc_nerfs_tpu/render/ngp_render.py:220", []),
+    "march_rays_fused_bwd": ("march.cu", "myc_nerfs_tpu/render/ngp_render.py:220", []),
     "gather_rows": ("grid_probe.cu", "scripts/probe_r2_pallas.py:83",
                     ["scripts/probe_r2_pallas.py:108", "scripts/probe_r2_pallas.py:138",
                      "scripts/probe_r2b_kernel.py:60", "scripts/probe_r2b_kernel.py:87",
@@ -3047,6 +3243,7 @@ def main() -> None:
     phase_build()
     stats = {"fused_mlp": phase_kernel(fm), "fused_mlp_bwd": phase_kernel_bwd(fm)}
     stats["brick_encode"], stats["brick_encode_bwd"] = phase_kernel_encode()
+    stats["march_rays_fused"], stats["march_rays_fused_bwd"] = phase_march()
     stats["fused_mlp_wide"], stats["fused_mlp_wide_bwd"] = phase_kernel_wide(fm)
     probe = phase_probe()
     grid, render = phase_slice(smi)

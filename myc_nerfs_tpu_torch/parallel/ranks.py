@@ -21,7 +21,8 @@ from . import mesh as mesh_lib
 from . import spmd
 from ..utils import profiling
 
-KERNEL_COUNTERS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd")
+KERNEL_COUNTERS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd",
+                   "march_rays_fused")
 
 
 def prebuild(device) -> None:
@@ -30,8 +31,9 @@ def prebuild(device) -> None:
     if torch.device(device).type == "cuda":
         from ..ops.cuda import fused_mlp as fm
         from ..ops.cuda import grid_encode as ge
+        from ..ops.cuda import march as mc
 
-        for m in (fm, ge):
+        for m in (fm, ge, mc):
             m.build()
 
 

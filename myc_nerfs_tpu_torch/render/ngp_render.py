@@ -5,7 +5,10 @@ The fused march (default): pass 1 probes the density grid at n_coarse
 uniform depths inside the ray/AABB intersection, decides occupancy with the
 bitfield threshold and keeps a coarse transmittance; pass 2 places K
 samples by inverse CDF over the live bins (jnerf RaySampler, CompactedCoord
-and CalcRgb folded into one static-shape pass). With ``fused_march=False``
+and CalcRgb folded into one static-shape pass). On CUDA tensors it is one
+launch of csrc/march.cu (ops/cuda/march.py), with a backward kernel where
+autograd records; on the CPU ``march_rays_fused_plain``, the kernel's
+oracle, runs it as torch ops. With ``fused_march=False``
 the two-pass bitfield march (``march_rays``) places n_samples per ray, and
 in training ``compact_marched`` keeps the first n_compact samples before
 the transmittance falls below eps, from the density grid
@@ -19,6 +22,7 @@ Positions are warped to [0, 1] over the cascade AABB and directions to
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -26,6 +30,7 @@ import torch
 
 from ..models.ngp import density_activation, rgb_activation
 from ..ops.compaction import compact_first_k
+from ..ops.cuda import march as march_cuda
 from ..utils import profiling
 from .composite import composite_rgb, composite_weights
 from .occupancy import (OccupancyConfig, OccupancyState, grid_value_at, mip_from_pos,
@@ -195,10 +200,75 @@ def march_rays_fused(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
                      trunc_eps: Optional[float] = None) -> MarchedRays:
     """March + coarse transmittance truncation in one pass over the density
     grid: bins whose coarse transmittance has fallen below trunc_eps are
-    excluded from sample placement (CompactedCoord folded into RaySampler)."""
-    N = rays_o.shape[0]
+    excluded from sample placement (CompactedCoord folded into RaySampler).
+
+    CUDA rays launch the kernel of csrc/march.cu, or raise (its backward
+    kernel carries the gradient of positions, dirs, t and dt to the rays
+    and ``xi``); CPU rays run march_rays_fused_plain."""
+    if rays_o.device.type != "cuda":
+        return march_rays_fused_plain(occ_cfg, rcfg, occ_state, rays_o, rays_d, xi,
+                                      n_samples, trunc_eps)
     K = n_samples or rcfg.n_samples
     eps = rcfg.early_stop_eps if trunc_eps is None else trunc_eps
+    pos, t, valid, dt, dirs = march_cuda.march_fused(
+        march_constants(occ_cfg, rcfg, K, eps), occ_state.density_grid,
+        occ_state.mean_density, rays_o, rays_d, xi)
+    N = rays_o.shape[0]
+    return MarchedRays(positions=pos, dirs=dirs[:, None, :].expand(N, K, 3),
+                       dt=dt[:, None].expand(N, K), t=t, valid=valid)
+
+
+@functools.lru_cache(maxsize=None)
+def march_constants(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig, K: int,
+                    eps: float) -> march_cuda.MarchConstants:
+    """The kernel's configuration for march_rays_fused_plain's arithmetic:
+    each Python scalar rounded to f32 (by its c_float field) as torch rounds
+    it into an f32 op, and each division of a tensor by a Python number as
+    torch computes it on CUDA, a product with the number's f32 reciprocal."""
+    f32 = np.float32
+    lo, hi = rcfg.aabb
+    mn = rcfg.min_stepsize
+    return march_cuda.MarchConstants(
+        n_coarse=rcfg.n_coarse, n_samples=K, grid_size=occ_cfg.grid_size,
+        n_cascades=occ_cfg.n_cascades, single_mip=rcfg.aabb_scale == 1,
+        const_dt=rcfg.const_dt, truncate=eps > 0, lo=lo, hi=hi, near=rcfg.near_distance,
+        inv_coarse=float(f32(1) / f32(rcfg.n_coarse)), inv_samples=float(f32(1) / f32(K)),
+        inv_extent=float(f32(1) / f32(hi - lo)), inv_min_cone=1.0 / occ_cfg.min_cone_stepsize,
+        dt_const=mn * 0.5, dt_min=mn,
+        dt_max=mn * (1 << (occ_cfg.n_cascades - 1)) * MAX_STEP / occ_cfg.grid_size,
+        cone=rcfg.cone_angle_constant,
+        log_eps=float(np.log(f32(eps))) if eps > 0 else 0.0)
+
+
+def march_rays_fused_plain(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
+                           occ_state: OccupancyState, rays_o: torch.Tensor,
+                           rays_d: torch.Tensor, xi: Optional[torch.Tensor] = None,
+                           n_samples: Optional[int] = None,
+                           trunc_eps: Optional[float] = None) -> MarchedRays:
+    """march_rays_fused as torch ops: its CPU and autograd path, and the
+    kernel's oracle on the card."""
+    K = n_samples or rcfg.n_samples
+    eps = rcfg.early_stop_eps if trunc_eps is None else trunc_eps
+    tmin, span, wb, thresh, occ_c, logT_prev = _coarse_pass(occ_cfg, rcfg, occ_state,
+                                                            rays_o, rays_d)
+    # log(eps) in f32, like the JAX package's jnp.log(eps)
+    live = (occ_c & (logT_prev > float(np.log(np.float32(eps)))) if eps > 0
+            else occ_c)
+    single_mip = rcfg.aabb_scale == 1
+
+    def check(pos):
+        return _sigma_probe(occ_cfg, occ_state.density_grid, pos, single_mip) > thresh
+
+    return _place_samples(occ_cfg, rcfg, rays_o, rays_d, tmin, span, wb, live,
+                          K, xi, check)
+
+
+def _coarse_pass(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
+                 occ_state: OccupancyState, rays_o: torch.Tensor, rays_d: torch.Tensor):
+    """The fused march's density-grid pass: tmin, span, the bin width wb
+    [N], the occupancy threshold, and per coarse bin [N, n_coarse] its
+    occupancy and the coarse log transmittance before it."""
+    N = rays_o.shape[0]
     tmin, tmax = ray_aabb_range(rcfg, rays_o, rays_d)
     span = tmax - tmin
     single_mip = rcfg.aabb_scale == 1
@@ -216,15 +286,7 @@ def march_rays_fused(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
     od = torch.where(occ_c, sigma_c * wb[:, None], 0.0)
     logT_prev = torch.cat([torch.zeros((N, 1), device=rays_o.device),
                            -torch.cumsum(od, dim=1)[:, :-1]], dim=1)
-    # log(eps) in f32, like the JAX package's jnp.log(eps)
-    live = (occ_c & (logT_prev > float(np.log(np.float32(eps)))) if eps > 0
-            else occ_c)
-
-    def check(pos):
-        return _sigma_probe(occ_cfg, occ_state.density_grid, pos, single_mip) > thresh
-
-    return _place_samples(occ_cfg, rcfg, rays_o, rays_d, tmin, span, wb, live,
-                          K, xi, check)
+    return tmin, span, wb, thresh, occ_c, logT_prev
 
 
 class NGPRenderOut(NamedTuple):

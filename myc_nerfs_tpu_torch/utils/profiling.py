@@ -71,6 +71,8 @@ COUNTERS: Dict[str, str] = {
     "launch.fused_mlp_wide_bwd": "wide fused-MLP backward launches (chain, dW, sum)",
     "launch.brick_encode": "brick3 encode forward kernel launches",
     "launch.brick_encode_bwd": "brick3 encode backward kernel launches",
+    "launch.march_rays_fused": "fused NGP march kernel launches",
+    "launch.march_rays_fused_bwd": "fused NGP march backward kernel launches",
     "launch.gather_rows": "grid probe gather_rows launches",
     "launch.gather_lanes": "grid probe gather_lanes launches",
     "launch.scatter_add_rows": "grid probe scatter_add_rows launches",

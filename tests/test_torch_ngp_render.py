@@ -17,6 +17,7 @@ from myc_nerfs_tpu_torch.models import ngp as tngp
 from myc_nerfs_tpu_torch.render import composite as tcomp
 from myc_nerfs_tpu_torch.render import ngp_render as tnr
 from myc_nerfs_tpu_torch.render import occupancy as tocc
+from myc_nerfs_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -152,7 +153,8 @@ def test_density_grid_update_fed_jax_draws(aabb_scale):
 
 @pytest.mark.parametrize("aabb_scale", [1, 4])
 def test_march_and_render(aabb_scale):
-    """march_rays_fused + render_rays_ngp on the same grid, rays and field.
+    """march_rays_fused_plain (the fused march's CPU path and its kernel's
+    oracle) + render_rays_ngp on the same grid, rays and field.
     The inverse-CDF bin of a sample can flip when its rank lands within
     float rounding of a bin edge, so require that 98% of rays agree exactly
     in validity and to 1e-4 in depth and colour."""
@@ -166,8 +168,8 @@ def test_march_and_render(aabb_scale):
     key = jax.random.PRNGKey(3)
     xi = np.array(jax.random.uniform(key, (256, 1)))
     jm_ = jnr.march_rays_fused(jcfg, jr, js, jnp.asarray(o), jnp.asarray(d), key)
-    tm_ = tnr.march_rays_fused(tcfg, tr, ts, torch.from_numpy(o),
-                               torch.from_numpy(d), torch.from_numpy(xi))
+    tm_ = tnr.march_rays_fused_plain(tcfg, tr, ts, torch.from_numpy(o),
+                                     torch.from_numpy(d), torch.from_numpy(xi))
     jv, tv = np.asarray(jm_.valid), tm_.valid.numpy()
     assert 0.05 < jv.mean() < 0.95  # the grid both hits and misses
     same = (jv == tv).all(1) & (np.abs(np.asarray(jm_.t) - tm_.t.numpy())
@@ -187,6 +189,99 @@ def test_march_and_render(aabb_scale):
     assert rgb_ok.mean() >= 0.98
     assert np.asarray(ref.opacity).max() > 0.1  # the field is not transparent
     assert abs(int(out.n_samples) - int(ref.n_samples)) <= 0.02 * int(ref.n_samples)
+
+
+@pytest.mark.parametrize("aabb_scale", [1, 4])
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_fused_march_runs_the_plain_path_on_cpu(aabb_scale, needs_grad):
+    """march_rays_fused on CPU rays, whether or not they require grad, is
+    march_rays_fused_plain bit for bit and launches no kernel; rays that
+    require grad get a gradient through the march's t and dt."""
+    jcfg, tcfg = _occ_cfgs(2 if aabb_scale == 4 else 0)
+    ts = _to_port(_random_state(jcfg, 5))
+    rcfg = tnr.NGPRenderConfig(aabb_scale=aabb_scale, n_coarse=64, n_samples=16,
+                               near_distance=0.05)
+    o, d = _rays(64, aabb_scale, 8)
+    xi = torch.from_numpy(np.random.default_rng(9).uniform(0, 1, (64, 1)).astype(np.float32))
+    ro = torch.from_numpy(o).requires_grad_(needs_grad)
+    profiling.reset()
+    got = tnr.march_rays_fused(tcfg, rcfg, ts, ro, torch.from_numpy(d), xi)
+    want = tnr.march_rays_fused_plain(tcfg, rcfg, ts, torch.from_numpy(o),
+                                      torch.from_numpy(d), xi)
+    for a, b in zip(got, want):
+        assert torch.equal(a.detach(), b)
+    assert got.valid.any() and not got.valid.all()
+    assert profiling.counts()["launch.march_rays_fused"] == 0
+    assert got.t.requires_grad == needs_grad
+    if needs_grad:
+        (torch.where(got.valid, got.t, 0.0).sum() + got.dt.sum()).backward()
+        assert torch.isfinite(ro.grad).all() and ro.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("aabb_scale, n_coarse, K, const_dt, eps", [
+    (1, 64, 16, True, 1e-4), (4, 512, 64, True, 1e-4), (4, 96, 20, False, 0.0),
+    (3, 100, 18, False, 4.5e-3)])
+def test_march_constants_are_the_plain_versions_f32_scalars(aabb_scale, n_coarse, K,
+                                                             const_dt, eps):
+    """The kernel's scalars: each an f32 value, each the plain version's
+    Python number rounded to f32 (a division by a Python number on CUDA:
+    f32 1 over the f32 number), the switches from the configs."""
+    f32 = np.float32
+    occ_cfg = tocc.OccupancyConfig(grid_size=32, n_cascades=3, max_cascade=2)
+    rcfg = tnr.NGPRenderConfig(aabb_scale=aabb_scale, n_coarse=n_coarse, const_dt=const_dt)
+    c = tnr.march_constants(occ_cfg, rcfg, K, eps)
+    for name, _ in c._fields_:
+        v = getattr(c, name)
+        if isinstance(v, float):
+            assert v == float(f32(v)), name
+    lo, hi = rcfg.aabb
+    assert (c.lo, c.hi, c.near) == (lo, hi, float(f32(0.2)))
+    assert c.inv_coarse == float(f32(1) / f32(n_coarse))
+    assert c.inv_samples == float(f32(1) / f32(K))
+    assert c.inv_extent == float(f32(1) / f32(aabb_scale))
+    assert c.dt_const == float(f32(rcfg.min_stepsize * 0.5))
+    assert c.dt_max == float(f32(rcfg.min_stepsize * 4 * 1024 / 32))
+    assert (c.single_mip, c.const_dt, c.truncate) == (aabb_scale == 1, const_dt, eps > 0)
+    assert c.log_eps == (float(np.log(f32(eps))) if eps > 0 else 0.0)
+    assert (c.n_coarse, c.n_samples, c.grid_size, c.n_cascades) == (n_coarse, K, 32, 3)
+
+
+def test_march_kernel_wrapper_raises_on_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors or raises: it never falls
+    back to the plain version (march_rays_fused chooses the path)."""
+    from myc_nerfs_tpu_torch.ops.cuda import march as march_cuda
+
+    jcfg, tcfg = _occ_cfgs(2)
+    ts = _to_port(_random_state(jcfg, 5))
+    rcfg = tnr.NGPRenderConfig(aabb_scale=4, n_coarse=64, n_samples=16)
+    o, d = _rays(8, 4, 1)
+    profiling.reset()
+    with pytest.raises(ValueError, match="unsupported device"):
+        march_cuda.march_fused(tnr.march_constants(tcfg, rcfg, 16, 1e-4), ts.density_grid,
+                               ts.mean_density, torch.from_numpy(o), torch.from_numpy(d))
+    assert profiling.counts()["launch.march_rays_fused"] == 0
+
+
+def test_truncation_margin():
+    """test_torch_cuda_march.truncation_margin (the card tests' bound on
+    which rays may differ) is the least |logT_prev - log(eps)| over occupied
+    bins, inf without truncation; rays that miss the box have no bin."""
+    from test_torch_cuda_march import truncation_margin
+
+    jcfg, tcfg = _occ_cfgs(2)
+    ts = _to_port(_random_state(jcfg, 5))
+    rcfg = tnr.NGPRenderConfig(aabb_scale=4, n_coarse=64, n_samples=16, near_distance=0.05)
+    o, d = _rays(32, 4, 3)
+    d[:4] = -d[:4]  # aimed away from the box: span 0
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    m = truncation_margin(tcfg, rcfg, ts, o, d)
+    _, span, _, _, occ_c, logT = tnr._coarse_pass(tcfg, rcfg, ts, o, d)
+    log_eps = float(np.log(np.float32(1e-4)))
+    for i in range(32):
+        gaps = (logT[i] - log_eps).abs()[occ_c[i]]
+        assert m[i] == (gaps.min() if gaps.numel() else float("inf"))
+    assert torch.isinf(truncation_margin(tcfg, rcfg, ts, o, d, trunc_eps=0.0)).all()
+    assert torch.isfinite(m).any()
 
 
 def test_compositors():
