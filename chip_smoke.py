@@ -2642,7 +2642,16 @@ def phase_tensorf_variants(card: str) -> list:
     NeRF++) at 48^3 voxels with a centred density bump: every parameter's
     gradient on the card in f32 (TF32 off) against the CPU in f64, |a-b| /
     |b| per tensor within TENSORF_GRAD_TOL. Returns the launch counts of
-    the two training runs."""
+    the two training runs.
+
+    Scarf at its published widths (its bbox, near 15, radii 28, the final
+    stage's (428, 147, 428) grid and 1241 foreground samples, 512
+    background samples, 1024 rays, past both events) is the benchmark's
+    cell tensorf_scarf.train, checked there against a plain reference on
+    the card each run. What only this phase covers: Scarf's events (the
+    alpha-mask updates, the shrink, both upsamples, the ray refilter) and
+    training over many steps until the PSNR rises, the REF family, and the
+    f32 card gradients against f64."""
     import tempfile
 
     from myc_nerfs_tpu_torch.cli import tensorf_train as tcli

@@ -11,6 +11,12 @@ myc_nerfs_tpu/models/nerfpp.py; tensorf-myc models/nerfplusplus.py).
 - fg and bg are composed with the leftover foreground transmittance
   bg_lambda, gated at > 0.1 (:272-318).
 
+Spans (utils/profiling.py): the foreground runs under the VM-split
+forward's ``tensorf.sample``, ``.density``, ``.shade`` and ``.composite``;
+the background under ``nerfpp.bg_points``, ``.bg_mlp`` and
+``.bg_composite``; counter ``nerfpp.bg_samples`` adds rays x bg_samples
+per forward.
+
 The draws are arguments: ``draws = (fg [N, S], bg [N, bg_samples])`` in
 [0, 1), the JAX package's ``uniform(k_fg, ...)`` and ``uniform(k_bg, ...)``
 of ``split(key)``.
@@ -23,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..render.composite import raw2alpha
+from ..utils.profiling import count, span
 from . import tensorf as tf
 
 HUGE = 1e10
@@ -137,64 +144,71 @@ def nerfpp_forward(model_cfg: tf.TensoRFConfig, pp_cfg: NerfPPConfig, geom: tf.S
     d_fg, d_bg = draws if draws is not None else (None, None)
 
     # foreground: from near to the sphere's exit (sample_ray, :239-269)
-    fg_far = intersect_sphere(ray_o, ray_d, pp_cfg.radii * pp_cfg.radii)
-    near = model_cfg.near_far[0]
-    step = (fg_far - near) / (n_s - 1)
-    fg_depth = near + step[..., None] * torch.arange(n_s, dtype=torch.float32,
-                                                     device=rays.device)[None]
-    fg_depth = perturb_samples(d_fg, fg_depth)
-    pts = ray_o[:, None, :] + ray_d[:, None, :] * fg_depth[..., None]
-    aabb = buffers["aabb"]
-    valid = torch.logical_not(torch.logical_or(aabb[0] > pts, pts > aabb[1]).any(-1))
-    dists = torch.cat([fg_depth[:, 1:] - fg_depth[:, :-1],
-                       torch.zeros_like(fg_depth[:, :1])], -1)
-    occ = tf.alpha_mask_valid(buffers, pts)
-    if occ is not None:
-        valid = torch.logical_and(valid, occ)
-    xyz = tf.normalize_coord(aabb, pts)
-    sigma = tf.masked_density(model_cfg, params, valid, xyz)
-    alpha, weight, _ = raw2alpha(sigma, dists * model_cfg.distance_scale)
-    app_mask = weight > model_cfg.ray_march_weight_thres
-    idx = tf.selected(app_mask)
-    xyz_a = xyz.reshape(-1, 3)[idx]
-    dirs = ray_d[torch.div(idx, n_s, rounding_mode="floor")]
-    rgb = params["mlp"](xyz_a, dirs, tf.compute_app_feature(model_cfg, params, xyz_a))
-    rgb_s = tf.scatter_rows(idx, rgb, app_mask.numel()).reshape(app_mask.shape + (3,))
-    fg_rgb_map = (weight[..., None] * rgb_s).sum(-2)
-    depth_map = (weight * fg_depth).sum(-1)
-
-    # background lambda from the foreground alphas (:279-281)
-    bg_lambda = torch.cumprod(1.0 - alpha + TINY, dim=-1)[..., -1]
+    with span("tensorf.sample"):
+        fg_far = intersect_sphere(ray_o, ray_d, pp_cfg.radii * pp_cfg.radii)
+        near = model_cfg.near_far[0]
+        step = (fg_far - near) / (n_s - 1)
+        fg_depth = near + step[..., None] * torch.arange(n_s, dtype=torch.float32,
+                                                         device=rays.device)[None]
+        fg_depth = perturb_samples(d_fg, fg_depth)
+        pts = ray_o[:, None, :] + ray_d[:, None, :] * fg_depth[..., None]
+        aabb = buffers["aabb"]
+        valid = torch.logical_not(torch.logical_or(aabb[0] > pts, pts > aabb[1]).any(-1))
+        dists = torch.cat([fg_depth[:, 1:] - fg_depth[:, :-1],
+                           torch.zeros_like(fg_depth[:, :1])], -1)
+        occ = tf.alpha_mask_valid(buffers, pts)
+        if occ is not None:
+            valid = torch.logical_and(valid, occ)
+        xyz = tf.normalize_coord(aabb, pts)
+    with span("tensorf.density"):
+        sigma = tf.masked_density(model_cfg, params, valid, xyz)
+    with span("tensorf.shade"):
+        alpha, weight, _ = raw2alpha(sigma, dists * model_cfg.distance_scale)
+        app_mask = weight > model_cfg.ray_march_weight_thres
+        idx = tf.selected(app_mask)
+        xyz_a = xyz.reshape(-1, 3)[idx]
+        dirs = ray_d[torch.div(idx, n_s, rounding_mode="floor")]
+        rgb = params["mlp"](xyz_a, dirs, tf.compute_app_feature(model_cfg, params, xyz_a))
+        rgb_s = tf.scatter_rows(idx, rgb, app_mask.numel()).reshape(app_mask.shape + (3,))
+    with span("tensorf.composite"):
+        fg_rgb_map = (weight[..., None] * rgb_s).sum(-2)
+        depth_map = (weight * fg_depth).sum(-1)
 
     # background march over inverse depth (:283-311)
     n_bg = pp_cfg.bg_samples
-    viewdirs = ray_d / torch.linalg.norm(ray_d, dim=-1, keepdim=True)
-    bg_z = tf.linspace_f32(0.0, pp_cfg.radii, n_bg, rays.device).expand(
-        ray_d.shape[:-1] + (n_bg,))
-    bg_z = perturb_samples(d_bg, bg_z)
-    shape = ray_d.shape[:-1] + (n_bg, 3)
-    bg_pts, _ = depth2pts_outside(ray_o[:, None, :].expand(shape), ray_d[:, None, :].expand(shape),
-                                  bg_z, pp_cfg.radii)
-    pts_embed = nerfpp_embed(bg_pts, pp_cfg.bg_freq)
-    view_embed = nerfpp_embed(viewdirs[:, None, :].expand(shape), pp_cfg.bg_view_freq)
-    # flip: the near_depth parameter is the physical far (:296-300)
-    pts_embed = torch.flip(pts_embed, dims=(-2,))
-    view_embed = torch.flip(view_embed, dims=(-2,))
-    bg_z_f = torch.flip(bg_z, dims=(-1,))
-    bg_dists = torch.cat([bg_z_f[..., :-1] - bg_z_f[..., 1:],
-                          HUGE * torch.ones_like(bg_z_f[..., :1])], -1)
-    bg_rgb, bg_sigma = params["bg_net"](pts_embed, view_embed)
-    bg_alpha = 1.0 - torch.exp(-bg_sigma * bg_dists)
-    Tb = torch.cumprod(1.0 - bg_alpha + TINY, dim=-1)[..., :-1]
-    Tb = torch.cat([torch.ones_like(Tb[..., :1]), Tb], -1)
-    bg_weights = bg_alpha * Tb
-    bg_rgb_map = (bg_weights[..., None] * bg_rgb).sum(-2)
-    bg_depth_map = (bg_weights * bg_z_f).sum(-1)
+    count("nerfpp.bg_samples", ray_d.shape[0] * n_bg)
+    with span("nerfpp.bg_points"):
+        viewdirs = ray_d / torch.linalg.norm(ray_d, dim=-1, keepdim=True)
+        bg_z = tf.linspace_f32(0.0, pp_cfg.radii, n_bg, rays.device).expand(
+            ray_d.shape[:-1] + (n_bg,))
+        bg_z = perturb_samples(d_bg, bg_z)
+        shape = ray_d.shape[:-1] + (n_bg, 3)
+        bg_pts, _ = depth2pts_outside(ray_o[:, None, :].expand(shape),
+                                      ray_d[:, None, :].expand(shape), bg_z, pp_cfg.radii)
+        pts_embed = nerfpp_embed(bg_pts, pp_cfg.bg_freq)
+        view_embed = nerfpp_embed(viewdirs[:, None, :].expand(shape), pp_cfg.bg_view_freq)
+        # flip: the near_depth parameter is the physical far (:296-300)
+        pts_embed = torch.flip(pts_embed, dims=(-2,))
+        view_embed = torch.flip(view_embed, dims=(-2,))
+        bg_z_f = torch.flip(bg_z, dims=(-1,))
+    with span("nerfpp.bg_mlp"):
+        bg_rgb, bg_sigma = params["bg_net"](pts_embed, view_embed)
+    with span("nerfpp.bg_composite"):
+        bg_dists = torch.cat([bg_z_f[..., :-1] - bg_z_f[..., 1:],
+                              HUGE * torch.ones_like(bg_z_f[..., :1])], -1)
+        bg_alpha = 1.0 - torch.exp(-bg_sigma * bg_dists)
+        Tb = torch.cumprod(1.0 - bg_alpha + TINY, dim=-1)[..., :-1]
+        Tb = torch.cat([torch.ones_like(Tb[..., :1]), Tb], -1)
+        bg_weights = bg_alpha * Tb
+        bg_rgb_map = (bg_weights[..., None] * bg_rgb).sum(-2)
+        bg_depth_map = (bg_weights * bg_z_f).sum(-1)
 
-    # compose with the > 0.1 gate (:313-318)
-    bg_lambda = torch.where(bg_lambda > 0.1, bg_lambda, 0.0)
-    rgb_map = fg_rgb_map + bg_lambda[..., None] * bg_rgb_map
-    depth_map = depth_map + bg_lambda * bg_depth_map
+        # compose with the foreground's leftover transmittance bg_lambda
+        # (:279-281), gated at > 0.1 (:313-318)
+        bg_lambda = torch.cumprod(1.0 - alpha + TINY, dim=-1)[..., -1]
+        bg_lambda = torch.where(bg_lambda > 0.1, bg_lambda, 0.0)
+        rgb_map = fg_rgb_map + bg_lambda[..., None] * bg_rgb_map
+        depth_map = depth_map + bg_lambda * bg_depth_map
     return tf.TensoRFOut(rgb_map=rgb_map, depth_map=depth_map, weight=weight, sigma=sigma,
                          bg_weight=bg_lambda[..., None], z_vals=fg_depth,
                          extras={"app_mask": app_mask, "valid": valid,

@@ -51,20 +51,30 @@ SPANS: Dict[str, str] = {
     "ngp.chunk": "one render chunk's render_rays_ngp",
     "tensorf.batch": "one step's ray ids, permutation upload, draws and ray gathers",
     "tensorf.step": "one TensoRF train step (TensoRFTrainer.train_step)",
-    "tensorf.sample": "sample_ray, dists, the alpha-mask gate, normalize_coord",
-    "tensorf.density": "masked_density and its nonzero",
+    "tensorf.sample": "sample_ray, dists, the alpha-mask gate, normalize_coord; in "
+                      "nerfpp_forward the foreground's samples from near to the sphere's "
+                      "exit, their jitter, dists, the AABB clip, the gate, normalize_coord",
+    "tensorf.density": "masked_density and its nonzero (nerfpp_forward's foreground too)",
     "tensorf.shade": "raw2alpha, the weight threshold's nonzero, app features, "
-                     "shade, scatter_rows",
-    "tensorf.composite": "composite_maps",
+                     "shade, scatter_rows (nerfpp_forward's foreground too)",
+    "tensorf.composite": "composite_maps; in nerfpp_forward the foreground's rgb and "
+                         "depth sums",
     "tensorf.regularizers": "ortho, L1, TV and a family's extra loss",
     "tensorf.backward": "autograd.grad of the loss",
     "tensorf.update": "both Adams and their in-place adds",
     "tensorf.events": "the stage events: alpha mask, shrink, upsample, ray refilter",
+    "nerfpp.bg_points": "NeRF++'s background samples: inverse depths and their jitter, "
+                        "depth2pts_outside (sphere intersection, Rodrigues rotation), both "
+                        "embeddings, the flips",
+    "nerfpp.bg_mlp": "the background MLP (BgMLPNet) on every background sample",
+    "nerfpp.bg_composite": "background alpha, transmittance and maps, the foreground's "
+                           "leftover transmittance bg_lambda, its > 0.1 gate, the fg/bg sum",
 }
 
 COUNTERS: Dict[str, str] = {
     "ngp.march.slots": "sample slots the march hands the field (rays x samples per ray)",
     "ngp.march.valid": "valid samples among them (the compositor's n_samples, on the device)",
+    "nerfpp.bg_samples": "NeRF++ background samples evaluated (rays x bg_samples per forward)",
     "launch.fused_mlp": "narrow fused-MLP forward kernel launches",
     "launch.fused_mlp_bwd": "narrow fused-MLP backward kernel launches",
     "launch.fused_mlp_wide": "wide fused-MLP forward kernel launches",
