@@ -2,8 +2,9 @@
 
 Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: compiles the four sources under myc_nerfs_tpu_torch/csrc/
-   (fused_mlp.cu, grid_encode.cu, grid_probe.cu, march.cu) with nvcc, all at once,
+2. build: compiles the five sources under myc_nerfs_tpu_torch/csrc/
+   (fused_mlp.cu, grid_encode.cu, grid_probe.cu, march.cu, rgb_input.cu) with nvcc,
+   all at once,
    and prints each one's build time; then counts, in the built libraries'
    SASS (cuobjdump -sass), the tensor-core instructions of the fused-MLP
    kernels, HMMA (mma.sync) in the narrow bf16 ones and HGMMA (wgmma) in
@@ -57,6 +58,12 @@ Phases, each ending in one line (a failure exits non-zero):
    plain version (the card tests' per-ray tolerance), and the backward's
    time against the plain version's (median_ms: autograd runs it on the
    forward's stream, outside a graph capture).
+5c. rgb_input: the NGP rgb-MLP input kernel (csrc/rgb_input.cu, x = [h |
+   SH(dirs * 2 - 1)]) against rgb_input_plain, the eager composition it
+   replaces, at one render chunk's 262144 rows, bf16 and f32, on random h and
+   directions with the 0 and 1 borders: every element equal bit for bit; the
+   device time (graph_ms) and the call's (median_ms) of both, and the bound of
+   the bytes the kernel must move (h and dirs in, x out: rgb_input_bound).
 6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
    line each, with their library calls and bounds; every probe must be
    correct. The kernels line's gather_lanes entry is the 65536x128 probe
@@ -248,7 +255,8 @@ FRAMES, H, W = 2, 800, 800          # configs/ngp/Car.py test split
 # bf16 2 ulps (2^-7), as the forward
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 TRAIN_STEPS, TRAIN_VIEWS, TRAIN_SIZE = 256, 12, 128
-TRAIN_KERNELS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd")
+TRAIN_KERNELS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd",
+                 "rgb_input")
 # the last block's mean train PSNR must beat the first block's by this much
 # (dB): half, rounded down, of the 18.7 dB rise (13.0 -> 31.8) of the first
 # run of this phase on an H100
@@ -409,7 +417,7 @@ def dtype_name(dtype) -> str:
 # counter is launch.<name>)
 KERNELS = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide", "fused_mlp_wide_bwd",
            "brick_encode", "brick_encode_bwd", "march_rays_fused", "march_rays_fused_bwd",
-           "gather_rows",
+           "rgb_input", "gather_rows",
            "gather_lanes", "scatter_add_rows", "smem_scratch")
 
 
@@ -431,8 +439,9 @@ def phase_build() -> None:
     from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
     from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
     from myc_nerfs_tpu_torch.ops.cuda import march as mc
+    from myc_nerfs_tpu_torch.ops.cuda import rgb_input as ri
 
-    modules = (fm, ge, gp, mc)
+    modules = (fm, ge, gp, mc, ri)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         builds = [pool.submit(m.build) for m in modules]
@@ -898,6 +907,51 @@ def march_backward(tests, nr, occ_cfg, rcfg, state, o, d, xi, K, keep, sname: st
             "library_ms": None}
 
 
+def rgb_input_bound(rows: int, dtype: torch.dtype) -> dict:
+    """The H100 bound of the bytes the rgb-input kernel must move for
+    ``rows`` rows, each once: h [rows, 16] and dirs [rows, 3] f32 in, x
+    [rows, 32] out."""
+    from myc_nerfs_tpu_torch.utils.timing import roofline
+
+    size = torch.finfo(dtype).bits // 8
+    return roofline(0, rows * (16 * size + 12 + 32 * size), dtype)
+
+
+def phase_rgb_input():
+    """Phase 5c: the rgb-input kernel against rgb_input_plain at one render
+    chunk's rows, bf16 and f32. Returns the bf16 entry of the kernels line,
+    with the f32 numbers beside it."""
+    from myc_nerfs_tpu_torch.ops.cuda import rgb_input as ri
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    d = torch.rand((ROWS, 3), device="cuda", generator=g)
+    d[::7] = torch.randint(0, 2, (d[::7].shape[0], 3), device="cuda", generator=g).float()
+    stats = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        h = (torch.rand((ROWS, 16), device="cuda", generator=g) * 8 - 4).to(dtype)
+        with torch.no_grad():
+            got, want = ri.rgb_input(h, d), ri.rgb_input_plain(h, d)
+            view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            differing = int((got.view(view) != want.view(view)).sum())
+            t_k = graph_ms(lambda: ri.rgb_input(h, d))
+            t_c = median_ms(lambda: ri.rgb_input(h, d))
+            t_p = graph_ms(lambda: ri.rgb_input_plain(h, d))
+            t_pc = median_ms(lambda: ri.rgb_input_plain(h, d))
+        work = rgb_input_bound(ROWS, dtype)
+        ok = differing == 0
+        print(f"rgb_input: {dtype_name(dtype)} {ROWS}x32 differing_elements={differing} "
+              f"{'ok' if ok else 'BREACH'} {bound_fields(t_k, work)} call_ms={t_c:.4f} "
+              f"plain_ms={t_p:.4f} plain_call_ms={t_pc:.4f}", flush=True)
+        if not ok:
+            fail(f"rgb_input kernel {dtype_name(dtype)}: {differing} elements differ from "
+                 "the plain composition")
+        stats[dtype_name(dtype)] = {"differing_elements": differing, "ms": t_k,
+                                    "call_ms": t_c, "plain_ms": t_p, "plain_call_ms": t_pc,
+                                    "library_ms": None, "bound_ms": work["bound_ms"],
+                                    "bound_by": work["bound_by"]}
+    return {**stats["bfloat16"], "float32": stats["float32"]}
+
+
 # each probe kernel's entry in the JSON line: the probe record it takes its
 # numbers from
 PROBE_RECORDS = {"gather_rows": "gather_rows_float32",
@@ -988,7 +1042,8 @@ def phase_slice(card: str):
           f"brick_encode={grid_launches['brick_encode']} "
           f"render_launches fused_mlp={launches['fused_mlp']} "
           f"brick_encode={launches['brick_encode']} "
-          f"march_rays_fused={launches['march_rays_fused']} [{card}]", flush=True)
+          f"march_rays_fused={launches['march_rays_fused']} "
+          f"rgb_input={launches['rgb_input']} [{card}]", flush=True)
     if tuple(rgb.shape) != (FRAMES, H, W, 3) or not torch.isfinite(rgb).all():
         fail("render output is not finite or has the wrong shape")
     if non_bg < 1e-3:
@@ -997,9 +1052,10 @@ def phase_slice(card: str):
         if counts["fused_mlp"] == 0 or counts["brick_encode"] == 0:
             fail(f"the {name} did not run the fused_mlp and brick_encode kernels")
     chunks = FRAMES * math.ceil(H * W / 4096)
-    if launches["march_rays_fused"] != chunks:
-        fail(f"the render ran the march kernel {launches['march_rays_fused']} times, "
-             f"not once per chunk ({chunks})")
+    for kernel in ("march_rays_fused", "rgb_input"):
+        if launches[kernel] != chunks:
+            fail(f"the render ran the {kernel} kernel {launches[kernel]} times, "
+                 f"not once per chunk ({chunks})")
 
     # the same rays through the plain encode and MLP: the slice agrees with
     # its reference path (bf16 both ways; see TOL for the rounding allowance)
@@ -3221,6 +3277,8 @@ KERNELS = {
     # no Pallas kernel: the JAX package's march is XLA
     "march_rays_fused": ("march.cu", "myc_nerfs_tpu/render/ngp_render.py:220", []),
     "march_rays_fused_bwd": ("march.cu", "myc_nerfs_tpu/render/ngp_render.py:220", []),
+    # no Pallas kernel: the JAX package's SH encode and concatenation are XLA
+    "rgb_input": ("rgb_input.cu", "myc_nerfs_tpu/models/ngp.py:258", []),
     "gather_rows": ("grid_probe.cu", "scripts/probe_r2_pallas.py:83",
                     ["scripts/probe_r2_pallas.py:108", "scripts/probe_r2_pallas.py:138",
                      "scripts/probe_r2b_kernel.py:60", "scripts/probe_r2b_kernel.py:87",
@@ -3253,6 +3311,7 @@ def main() -> None:
     stats = {"fused_mlp": phase_kernel(fm), "fused_mlp_bwd": phase_kernel_bwd(fm)}
     stats["brick_encode"], stats["brick_encode_bwd"] = phase_kernel_encode()
     stats["march_rays_fused"], stats["march_rays_fused_bwd"] = phase_march()
+    stats["rgb_input"] = phase_rgb_input()
     stats["fused_mlp_wide"], stats["fused_mlp_wide_bwd"] = phase_kernel_wide(fm)
     probe = phase_probe()
     grid, render = phase_slice(smi)

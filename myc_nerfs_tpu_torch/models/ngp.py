@@ -13,7 +13,10 @@ myc_nerfs_tpu/models/ngp.py).
   ``grid_impl`` 'brick3' (default) and 'hash'. The brick3 encode runs
   through the hand-written kernels of ops/cuda/grid_encode
   (``use_encode_kernel``), as the reference runs its CUDA grid encode;
-  the 'hash' encode is torch ops.
+  the 'hash' encode is torch ops. The rgb MLP's input, the density MLP's
+  output beside the directions' SH encoding, is one launch of
+  ops/cuda/rgb_input's kernel on CUDA tensors (its plain torch ops on
+  the CPU).
 
 bf16 (``use_bf16``) follows the JAX package: MLP weights are bf16, the
 grid tables stay f32 while the brick encode interpolates in bf16, and both
@@ -33,7 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda.fused_mlp import fused_mlp, fused_mlp_reference
-from ..ops.sh import sh_encode
+from ..ops.cuda.rgb_input import rgb_input
 
 HASH_PRIMES = (1, 19349663, 83492791)  # configs/Easyship.py:89
 _U32 = 0xFFFFFFFF  # uint32 wraparound, emulated in int64
@@ -185,7 +188,11 @@ class NGPNetwork(nn.Module):
 
     def forward(self, pos_enc: torch.Tensor, dir_enc: torch.Tensor) -> torch.Tensor:
         h = self.density_forward(pos_enc)
-        x = torch.cat([h, dir_enc], dim=-1)
+        return self.rgb_forward(torch.cat([h, dir_enc], dim=-1), h)
+
+    def rgb_forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """raw [N, 4] from the rgb MLP's input x [N, 32] ([h | dir_enc])
+        and the density MLP's output h [N, 16]."""
         pad = (-self.rgb2.shape[1]) % self.RGB_PAD
         rgb2 = torch.nn.functional.pad(self.rgb2, (0, pad))
         rgb = self._mlp(x, (self.rgb0, self.rgb1, rgb2))[:, :self.rgb2.shape[1]]
@@ -279,28 +286,21 @@ class NGPModel(nn.Module):
                           self.groups, compute_dtype=self.compute_dtype)
         return hash_encode(self.tables[0], positions, self.cfg.grid, self.levels)
 
-    def encode_dirs(self, dirs: torch.Tensor) -> torch.Tensor:
-        """SH encoding of dirs [N, 3] warped to [0, 1], padded to 16."""
-        return sh_encode(dirs * 2.0 - 1.0, degree=self.cfg.sh_degree, pad_to=16)
-
-    def net_inputs(self, positions: torch.Tensor, dirs: torch.Tensor):
-        """(pos_enc, dir_enc): the MLPs' inputs, in their dtype."""
-        pos_enc, dir_enc = self.encode(positions), self.encode_dirs(dirs)
-        if self.cfg.use_bf16:
-            pos_enc = pos_enc.to(torch.bfloat16)
-            dir_enc = dir_enc.to(torch.bfloat16)
-        return pos_enc, dir_enc
+    def density_input(self, positions: torch.Tensor) -> torch.Tensor:
+        """The density MLP's input, in its dtype."""
+        pos_enc = self.encode(positions)
+        return pos_enc.to(torch.bfloat16) if self.cfg.use_bf16 else pos_enc
 
     def forward(self, positions: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
         """positions [N, 3] in [0, 1], dirs [N, 3] warped to [0, 1].
-        Returns raw [N, 4] in f32."""
-        return self.net(*self.net_inputs(positions, dirs)).float()
+        Returns raw [N, 4] in f32. The rgb MLP's input [h | SH(dirs)] is
+        built by rgb_input, in h's dtype."""
+        h = self.net.density_forward(self.density_input(positions))
+        x = rgb_input(h, dirs, self.cfg.sh_degree)
+        return self.net.rgb_forward(x, h).float()
 
     def density_raw(self, positions: torch.Tensor) -> torch.Tensor:
-        pos_enc = self.encode(positions)
-        if self.cfg.use_bf16:
-            pos_enc = pos_enc.to(torch.bfloat16)
-        return self.net.density(pos_enc).float()
+        return self.net.density(self.density_input(positions)).float()
 
 
 class _DensityActivation(torch.autograd.Function):

@@ -22,7 +22,7 @@ from . import spmd
 from ..utils import profiling
 
 KERNEL_COUNTERS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd",
-                   "march_rays_fused")
+                   "march_rays_fused", "rgb_input")
 
 
 def prebuild(device) -> None:
@@ -32,8 +32,9 @@ def prebuild(device) -> None:
         from ..ops.cuda import fused_mlp as fm
         from ..ops.cuda import grid_encode as ge
         from ..ops.cuda import march as mc
+        from ..ops.cuda import rgb_input as ri
 
-        for m in (fm, ge, mc):
+        for m in (fm, ge, mc, ri):
             m.build()
 
 

@@ -83,6 +83,7 @@ COUNTERS: Dict[str, str] = {
     "launch.brick_encode_bwd": "brick3 encode backward kernel launches",
     "launch.march_rays_fused": "fused NGP march kernel launches",
     "launch.march_rays_fused_bwd": "fused NGP march backward kernel launches",
+    "launch.rgb_input": "NGP rgb-MLP input kernel launches ([h | SH(dirs)])",
     "launch.gather_rows": "grid probe gather_rows launches",
     "launch.gather_lanes": "grid probe gather_lanes launches",
     "launch.scatter_add_rows": "grid probe scatter_add_rows launches",

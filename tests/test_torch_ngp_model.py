@@ -12,7 +12,9 @@ from myc_nerfs_tpu.ops.sh import sh_encode as jax_sh_encode
 from myc_nerfs_tpu_torch.core.bridge import load_ngp_params, ngp_params_to_numpy
 from myc_nerfs_tpu_torch.models import ngp as tngp
 from myc_nerfs_tpu_torch.ops import brick_grid as tbg
+from myc_nerfs_tpu_torch.ops.cuda.rgb_input import rgb_input
 from myc_nerfs_tpu_torch.ops.sh import sh_encode
+from myc_nerfs_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -34,6 +36,84 @@ def test_sh_encode():
     out = sh_encode(torch.from_numpy(d), degree=4, pad_to=16).numpy()
     assert out.shape == (500, 16)
     np.testing.assert_allclose(out, ref, atol=1e-6)
+
+
+def _rgb_input_case(dtype, n=600, seed=12):
+    """h [n, 16] in dtype; dirs [n, 3] warped to [0, 1] (unit directions,
+    the 0 and 1 borders, and the 0.5 of a padded zero ray); a cotangent g
+    [n, 32] of values exact in bf16."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d = (d + 1.0) * 0.5
+    d[:6] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [0.5, 0.5, 0.5], [1, 0, 0], [0.5, 0.5, 1]]
+    h = torch.from_numpy(rng.uniform(-2, 2, (n, 16)).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.uniform(-1, 1, (n, 32)).astype(np.float32))
+    return h, torch.from_numpy(d), g.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rgb_input_cpu_route_values(dtype):
+    """rgb_input on CPU tensors is the eager composition the kernel replaces,
+    [h | sh_encode(dirs * 2 - 1).to(dtype)], bit for bit, and launches
+    nothing; its SH columns match the JAX sh_encode (f32: atol 1e-6 on
+    values up to ~2.5, as test_sh_encode; bf16: one bf16 ulp, where an f32
+    rounding difference crosses a bf16 rounding boundary)."""
+    h, d, _ = _rgb_input_case(dtype)
+    profiling.reset()
+    x = rgb_input(h, d)
+    assert profiling.counts()["launch.rgb_input"] == 0
+    assert x.shape == (600, 32) and x.dtype == dtype
+    old = torch.cat([h, sh_encode(d * 2.0 - 1.0, degree=4, pad_to=16).to(dtype)], dim=-1)
+    assert torch.equal(x, old)
+    assert torch.equal(x[:, :16], h)
+    ref = jnp.asarray(jax_sh_encode(jnp.asarray(d.numpy()) * 2.0 - 1.0, degree=4, pad_to=16))
+    ref = np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32) if dtype == torch.bfloat16
+                     else ref)
+    rtol, atol = (2.0 ** -7, 0.0) if dtype == torch.bfloat16 else (0.0, 1e-6)
+    np.testing.assert_allclose(x[:, 16:].float().numpy(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rgb_input_cpu_route_gradients(dtype):
+    """Both gradients of rgb_input on CPU tensors: h's is g[:, :16], as the
+    concatenation's backward gives it, and the directions' equals autograd
+    through the old composition bit for bit, and the JAX vjp of sh_encode
+    to rtol 1e-5 (sums of a few products, in another order)."""
+    h, d, g = _rgb_input_case(dtype, seed=13)
+
+    def grads(fn):
+        hh, dd = h.clone().requires_grad_(), d.clone().requires_grad_()
+        (fn(hh, dd).float() * g).sum().backward()
+        return hh.grad, dd.grad
+
+    g_h, g_d = grads(rgb_input)
+    old_h, old_d = grads(lambda hh, dd: torch.cat(
+        [hh, sh_encode(dd * 2.0 - 1.0, degree=4, pad_to=16).to(dtype)], dim=-1))
+    assert g_h.dtype == dtype and torch.equal(g_h, g[:, :16].to(dtype))
+    assert torch.equal(g_h, old_h) and torch.equal(g_d, old_d)
+    _, vjp = jax.vjp(lambda dd: jax_sh_encode(dd * 2.0 - 1.0, degree=4, pad_to=16),
+                     jnp.asarray(d.numpy()))
+    (ref,) = vjp(jnp.asarray(g[:, 16:].numpy()))
+    np.testing.assert_allclose(g_d.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
+def test_ngp_model_forward_through_rgb_input(use_bf16):
+    """NGPModel.forward, which builds the rgb MLP's input with rgb_input,
+    equals the network's forward on the two encodings it took before
+    (NGPNetwork.forward(pos_enc, dir_enc)) bit for bit, and the counter
+    the kernel's launches add to is registered."""
+    assert "launch.rgb_input" in profiling.COUNTERS
+    _, _, tm = _models("brick3", use_bf16, seed=3)
+    dtype = torch.bfloat16 if use_bf16 else torch.float32
+    pos, d = torch.from_numpy(_positions(400, 14)), torch.from_numpy(_positions(400, 15))
+    with torch.no_grad():
+        out = tm(pos, d)
+        pos_enc = tm.encode(pos).to(dtype)
+        dir_enc = sh_encode(d * 2.0 - 1.0, degree=4, pad_to=16).to(dtype)
+        old = tm.net(pos_enc, dir_enc).float()
+    assert out.dtype == torch.float32 and torch.equal(out, old)
 
 
 def test_hash_encode_dense_and_hashed_levels():
