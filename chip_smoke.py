@@ -2,9 +2,8 @@
 
 Phases, each ending in one line (a failure exits non-zero):
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: compiles the five sources under myc_nerfs_tpu_torch/csrc/
-   (fused_mlp.cu, grid_encode.cu, grid_probe.cu, march.cu, rgb_input.cu) with nvcc,
-   all at once,
+2. build: compiles every kernel source, myc_nerfs_tpu_torch/csrc/*.cu, with
+   nvcc, all at once (ops/cuda/_build.py::build_all),
    and prints each one's build time; then counts, in the built libraries'
    SASS (cuobjdump -sass), the tensor-core instructions of the fused-MLP
    kernels, HMMA (mma.sync) in the narrow bf16 ones and HGMMA (wgmma) in
@@ -231,7 +230,6 @@ import math
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
@@ -435,29 +433,22 @@ def read_launches() -> dict:
 def phase_build() -> None:
     """nvcc on every source at once; each build is printed with its time."""
     from myc_nerfs_tpu_torch.ops.cuda import _build
-    from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
-    from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
-    from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
-    from myc_nerfs_tpu_torch.ops.cuda import march as mc
-    from myc_nerfs_tpu_torch.ops.cuda import rgb_input as ri
 
-    modules = (fm, ge, gp, mc, ri)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        builds = [pool.submit(m.build) for m in modules]
-        results = [b.result() for b in builds]
+    results = _build.build_all()
     root = _build.PKG.parent
-    for m, (path, secs) in zip(modules, results):
-        print(f"build: {m.SOURCE.relative_to(root)} -> {path.relative_to(root)} "
+    for name, (path, secs) in results.items():
+        print(f"build: {(_build.CSRC / name).relative_to(root)} -> {path.relative_to(root)} "
               f"in {secs:.2f} s", flush=True)
     print(f"build: all sources in {time.perf_counter() - t0:.2f} s (in parallel)",
           flush=True)
     # the bf16 MLP kernels must run on the tensor cores: HMMA (mma.sync) in
     # the narrow kernels' SASS, HGMMA (wgmma) in the wide ones'; the encode
     # backward adds by reductions (RED), not returning atomics
-    hmma = sass_counts(results[0][0], SASS_KERNELS, ("HMMA",))
-    hgmma = sass_counts(results[0][0], WGMMA_KERNELS, ("HGMMA",))
-    red = sass_counts(results[1][0], (ENCODE_BWD_SASS,), ("RED", "ATOM"))[ENCODE_BWD_SASS]
+    mlp_lib, encode_lib = results["fused_mlp.cu"][0], results["grid_encode.cu"][0]
+    hmma = sass_counts(mlp_lib, SASS_KERNELS, ("HMMA",))
+    hgmma = sass_counts(mlp_lib, WGMMA_KERNELS, ("HGMMA",))
+    red = sass_counts(encode_lib, (ENCODE_BWD_SASS,), ("RED", "ATOM"))[ENCODE_BWD_SASS]
     print("sass: HMMA instructions (cuobjdump -sass) "
           + " ".join(f"{k}={n['HMMA']}" for k, n in hmma.items())
           + "; HGMMA " + " ".join(f"{k}={n['HGMMA']}" for k, n in hgmma.items())

@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "error_text.cuh"
 #include "hopper.cuh"
 
 namespace {

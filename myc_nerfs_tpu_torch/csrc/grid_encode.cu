@@ -89,6 +89,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "error_text.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 32;
@@ -544,9 +546,4 @@ extern "C" int brick_encode_bwd(const float* pos, const void* g, void* const* gr
                                 int n_features, long long n, int bf16, void* stream) {
   return dispatch<true>(pos, const_cast<void*>(g), grads, n_groups, ilv, flv, n_levels,
                         n_features, n, bf16, stream);
-}
-
-extern "C" const char* grid_encode_error_string(int code) {
-  return code == -1 ? "arguments outside what the kernel takes"
-                    : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

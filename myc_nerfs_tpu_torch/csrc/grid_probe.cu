@@ -45,6 +45,8 @@
 
 #include <climits>
 
+#include "error_text.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -166,9 +168,4 @@ extern "C" int smem_scratch(float* out, long long bytes, void* stream) {
       out, int(bytes / 512));
   err = cudaGetLastError();
   return int(err);
-}
-
-extern "C" const char* grid_probe_error_string(int code) {
-  return code == -1 ? "arguments outside what the kernel takes"
-                    : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

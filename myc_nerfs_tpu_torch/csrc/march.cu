@@ -90,6 +90,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "error_text.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -479,9 +481,4 @@ extern "C" int march_rays_fused_bwd(const float* rays_o, const float* rays_d, co
                                 static_cast<cudaStream_t>(stream)>>>(
       rays_o, rays_d, xi, t, u, dt, n_occ, g_pos, g_t, g_dt, g_dirs, g_o, g_d, g_xi, *m, n);
   return int(cudaGetLastError());
-}
-
-extern "C" const char* march_error_string(int code) {
-  return code == -1 ? "arguments outside what the kernel takes"
-                    : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

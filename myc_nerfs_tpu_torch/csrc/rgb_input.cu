@@ -43,6 +43,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "error_text.cuh"
+
 namespace {
 
 constexpr int kWidth = 16;     // h's columns, and the SH bases'
@@ -161,9 +163,4 @@ extern "C" int rgb_input(const void* h, const float* dirs, long long d_row, long
   else
     rgb_input_kernel<false><<<unsigned(blocks), kThreads, 0, s>>>(src, dirs, d_row, d_col, dst, n);
   return int(cudaGetLastError());
-}
-
-extern "C" const char* rgb_input_error_string(int code) {
-  return code == -1 ? "arguments outside what the kernel takes"
-                    : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -38,16 +38,27 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ...utils.profiling import count
 from ...utils.timing import roofline
 from . import _build
+from ._build import I32, I64, PTR, STREAM
 
 SOURCE = _build.CSRC / "fused_mlp.cu"
+_PTRS, _INTS = ctypes.POINTER(PTR), ctypes.POINTER(I32)
+LIB = _build.Library(SOURCE, {
+    "fused_mlp_plan": [_INTS, I32, I32, I32, _INTS, _INTS],
+    "fused_mlp_fwd": [PTR, PTR, _PTRS, _INTS, I32, I64, I32, I32, STREAM],
+    "fused_mlp_bwd": [PTR, PTR, PTR, PTR, PTR, I32, _PTRS, _INTS, I32, I64, I32, STREAM],
+    "fused_mlp_wide_init": [],
+    "fused_mlp_wide_fwd": [PTR, PTR, _PTRS, _INTS, I32, I64, I32, I32, PTR, I64, STREAM],
+    "fused_mlp_wide_bwd_f32": [PTR, PTR, PTR, PTR, _PTRS, _INTS, I32, I64, _PTRS, I64, PTR,
+                               I64, PTR, I32, I64, I32, I32, STREAM],
+    "fused_mlp_wide_bwd_bf16": [PTR, PTR, PTR, PTR, _PTRS, _INTS, I32, I64, _PTRS, I64, PTR,
+                                I32, I64, I32, I32, STREAM],
+})
 MAX_LAYERS = 8
 MAX_WIDTH = 64         # the narrow kernels
 WIDE_MAX_WIDTH = 272   # the wide kernels
@@ -307,45 +318,15 @@ def split_bf16(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo.to(torch.bfloat16)
 
 
-def build() -> Tuple[Path, float]:
-    """Compile csrc/fused_mlp.cu (see _build.build). Returns (path,
-    seconds spent compiling; 0.0 when it was already built)."""
-    return _build.build(SOURCE)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    lib.fused_mlp_plan.argtypes = [ints, i32, i32, i32, ints, ints]
-    lib.fused_mlp_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr]
-    lib.fused_mlp_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptrs, ints,
-                                  i32, i64, i32, ptr]
-    lib.fused_mlp_wide_init.argtypes = []
-    lib.fused_mlp_wide_fwd.argtypes = [ptr, ptr, ptrs, ints, i32, i64, i32, i32, ptr, i64,
-                                       ptr]
-    lib.fused_mlp_wide_bwd_f32.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64, ptrs,
-                                           i64, ptr, i64, ptr, i32, i64, i32, i32, ptr]
-    lib.fused_mlp_wide_bwd_bf16.argtypes = [ptr, ptr, ptr, ptr, ptrs, ints, i32, i64,
-                                            ptrs, i64, ptr, i32, i64, i32, i32, ptr]
-    for fn in (lib.fused_mlp_plan, lib.fused_mlp_fwd, lib.fused_mlp_bwd,
-               lib.fused_mlp_wide_init, lib.fused_mlp_wide_fwd, lib.fused_mlp_wide_bwd_f32,
-               lib.fused_mlp_wide_bwd_bf16):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
-def _wide_library(device: int) -> ctypes.CDLL:
-    """The library, with the wide kernels' shared-memory limit lifted on
-    ``device`` (once per device)."""
-    lib = _library()
+def _wide_library(lib: _build.Library, device: int) -> _build.Library:
+    """``lib``, with the wide kernels' shared-memory limit lifted on
+    ``device`` (once per library and device)."""
     with torch.cuda.device(device):
-        err = lib.fused_mlp_wide_init()
+        err = lib.load()["fused_mlp_wide_init"]()
     if err != 0:
-        raise RuntimeError(f"fused_mlp wide kernels: init failed (error {err})")
+        raise RuntimeError(f"fused_mlp wide kernels: init failed (error {err}: "
+                           f"{lib.error_text(err)})")
     return lib
 
 
@@ -360,18 +341,17 @@ def _plan(widths: Tuple[int, ...], code: int, backward: bool,
     """(CTAs of the persistent grid, rows a CTA takes per step) of one
     kernel for a layer chain on one device, worked out once: the C side's
     occupancy query and shared-memory limit stay out of every call."""
-    lib = _library()
     ctas, rows = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.fused_mlp_plan((ctypes.c_int * len(widths))(*widths),
-                                 len(widths) - 1, code, int(backward),
-                                 ctypes.byref(ctas), ctypes.byref(rows))
+        err = LIB.load()["fused_mlp_plan"]((ctypes.c_int * len(widths))(*widths),
+                                           len(widths) - 1, code, int(backward),
+                                           ctypes.byref(ctas), ctypes.byref(rows))
     if err == -2:
         raise ValueError(f"fused_mlp {'backward ' if backward else ''}kernel: "
                          f"widths {list(widths)} need more shared memory than "
                          "a CTA can have")
     if err != 0:
-        raise RuntimeError(f"fused_mlp kernel plan failed (error {err})")
+        raise RuntimeError(f"fused_mlp kernel plan failed (error {err}: {LIB.error_text(err)})")
     return ctas.value, rows.value
 
 
@@ -463,17 +443,9 @@ def _narrow_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib = _library()
     ctas = _ctas(widths, x, backward=False)
-    w_ptrs, c_widths = _c_args(weights, widths)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.fused_mlp_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
-                                len(weights), x.shape[0], _DTYPE_CODE[x.dtype],
-                                ctas, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp kernel launch failed (error {err})")
-    count("launch.fused_mlp", 1)
+    LIB.launch("fused_mlp_fwd", x.device, x.data_ptr(), y.data_ptr(), *_c_args(weights, widths),
+               len(weights), x.shape[0], _DTYPE_CODE[x.dtype], ctas, counter="launch.fused_mlp")
     return y
 
 
@@ -522,20 +494,12 @@ def _narrow_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if m == 0:
         dw.zero_()
     else:
-        lib = _library()
         ctas = _ctas(widths, x, backward=True)
-        w_ptrs, c_widths = _c_args(weights, widths)
         partial = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
-            err = lib.fused_mlp_bwd(x.data_ptr(), g.data_ptr(),
-                                    dx.data_ptr() if need_dx else None,
-                                    dw.data_ptr(), partial.data_ptr(), ctas,
-                                    w_ptrs, c_widths, len(weights), m,
-                                    _DTYPE_CODE[x.dtype], stream)
-        if err != 0:
-            raise RuntimeError(f"fused_mlp backward kernel launch failed (error {err})")
-        count("launch.fused_mlp_bwd", 1)
+        LIB.launch("fused_mlp_bwd", x.device, x.data_ptr(), g.data_ptr(),
+                   dx.data_ptr() if need_dx else None, dw.data_ptr(), partial.data_ptr(), ctas,
+                   *_c_args(weights, widths), len(weights), m, _DTYPE_CODE[x.dtype],
+                   counter="launch.fused_mlp_bwd")
     dws = [t.view(a, b) for t, a, b in
            zip(torch.split(dw, sizes), widths[:-1], widths[1:])]
     return dx, dws
@@ -550,20 +514,13 @@ def fused_mlp_wide(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
     y = torch.empty((x.shape[0], widths[-1]), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib = _wide_library(x.device.index)
+    lib = _wide_library(LIB, x.device.index)
     plan = wide_plan(widths, x.shape[0], x.dtype, _sms(x.device.index))
     prep = torch.empty(plan.prep_floats, dtype=torch.float32, device=x.device)
-    w_ptrs, c_widths = _c_args(weights, widths)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.fused_mlp_wide_fwd(x.data_ptr(), y.data_ptr(), w_ptrs, c_widths,
-                                     len(weights), x.shape[0], _DTYPE_CODE[x.dtype],
-                                     plan.chain_ctas, prep.data_ptr() or None,
-                                     plan.prep_floats, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp wide kernel launch failed (error {err}) "
-                           f"for widths {widths}")
-    count("launch.fused_mlp_wide", 1)
+    lib.launch("fused_mlp_wide_fwd", x.device, x.data_ptr(), y.data_ptr(),
+               *_c_args(weights, widths), len(weights), x.shape[0], _DTYPE_CODE[x.dtype],
+               plan.chain_ctas, prep.data_ptr() or None, plan.prep_floats,
+               counter="launch.fused_mlp_wide")
     return y
 
 
@@ -586,36 +543,23 @@ def fused_mlp_wide_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if m == 0:
         dw.zero_()
     else:
-        lib = _wide_library(x.device.index)
+        lib = _wide_library(LIB, x.device.index)
         plan = wide_plan(widths, m, dtype, _sms(x.device.index))
         scratch = torch.empty(plan.scratch_elems, dtype=dtype, device=x.device)
         partial = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
-        w_ptrs, c_widths = _c_args(weights, widths)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        dx_ptr = dx.data_ptr() if need_dx else None
         planes = [p.data_ptr() if p is not None else None for p in wide_planes(plan, scratch)]
-        c_planes = (ctypes.c_void_p * len(planes))(*planes)
-        with torch.cuda.device(x.device):
-            if dtype == torch.bfloat16:
-                err = lib.fused_mlp_wide_bwd_bf16(
-                    x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
-                    len(weights), m, c_planes, plan.bit_words, partial.data_ptr(),
-                    plan.dw_splits,
-                    plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
-                    plan.chain_ctas, stream)
-            else:
-                prep = torch.empty(plan.prep_floats, dtype=torch.float32, device=x.device)
-                err = lib.fused_mlp_wide_bwd_f32(
-                    x.data_ptr(), g.data_ptr(), dx_ptr, dw.data_ptr(), w_ptrs, c_widths,
-                    len(weights), m, c_planes, plan.bit_words, prep.data_ptr(),
-                    plan.prep_floats,
-                    partial.data_ptr(), plan.dw_splits,
-                    plan.dw_split_rows // WIDE_BLOCK_ROWS, plan.dw_slices,
-                    plan.chain_ctas, stream)
-        if err != 0:
-            raise RuntimeError(f"fused_mlp wide backward launch failed (error {err}) "
-                               f"for widths {widths}")
-        count("launch.fused_mlp_wide_bwd", 1)
+        head = (x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None, dw.data_ptr(),
+                *_c_args(weights, widths), len(weights), m,
+                (ctypes.c_void_p * len(planes))(*planes), plan.bit_words)
+        tail = (partial.data_ptr(), plan.dw_splits, plan.dw_split_rows // WIDE_BLOCK_ROWS,
+                plan.dw_slices, plan.chain_ctas)
+        if dtype == torch.bfloat16:
+            lib.launch("fused_mlp_wide_bwd_bf16", x.device, *head, *tail,
+                       counter="launch.fused_mlp_wide_bwd")
+        else:
+            prep = torch.empty(plan.prep_floats, dtype=torch.float32, device=x.device)
+            lib.launch("fused_mlp_wide_bwd_f32", x.device, *head, prep.data_ptr(),
+                       plan.prep_floats, *tail, counter="launch.fused_mlp_wide_bwd")
     dws = [t.view(a, b) for t, a, b in
            zip(torch.split(dw, sizes), widths[:-1], widths[1:])]
     return dx, dws

@@ -20,18 +20,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from ...utils.profiling import count
 from ...utils.timing import roofline
 from .. import brick_grid as bg
 from . import _build
+from ._build import I32, I64, PTR, STREAM
 
 SOURCE = _build.CSRC / "grid_encode.cu"
+_ARGS = [PTR, PTR, ctypes.POINTER(PTR), I32, ctypes.POINTER(I32),
+         ctypes.POINTER(ctypes.c_float), I32, I32, I64, I32, STREAM]
+LIB = _build.Library(SOURCE, {"brick_encode_fwd": _ARGS, "brick_encode_bwd": _ARGS})
 FEATURES = (1, 2, 4, 8)
 MAX_LEVELS = 32
 MAX_GROUPS = 32
@@ -43,27 +45,6 @@ MAX_GROUPS = 32
 # in no fixed order).
 FWD_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
 BWD_TOL = 1e-5
-
-
-def build() -> Tuple[Path, float]:
-    """Compile csrc/grid_encode.cu (see _build.build). Returns (path,
-    seconds spent compiling; 0.0 when it was already built)."""
-    return _build.build(SOURCE)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    ints, floats = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
-    for fn in (lib.brick_encode_fwd, lib.brick_encode_bwd):
-        fn.argtypes = [ptr, ptr, ptrs, i32, ints, floats, i32, i32, i64, i32, ptr]
-        fn.restype = ctypes.c_int
-    lib.grid_encode_error_string.argtypes = [i32]
-    lib.grid_encode_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 @functools.cache
@@ -139,20 +120,13 @@ def _check(tables: Sequence[torch.Tensor], pos: torch.Tensor, cfg: bg.HashGridCo
                              f"shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, tables_or_grads: Sequence[torch.Tensor], pos: torch.Tensor,
-            io: torch.Tensor, cfg, levels, groups, bf16: int) -> None:
-    lib = _library()
+def _entry_args(tables_or_grads: Sequence[torch.Tensor], pos: torch.Tensor,
+                io: torch.Tensor, cfg, levels, groups, bf16: int) -> tuple:
+    """Both entry points' arguments but the stream."""
     ilv, flv = _level_args(cfg, levels, groups)
-    ptrs = (ctypes.c_void_p * len(tables_or_grads))(
-        *[t.data_ptr() for t in tables_or_grads])
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        err = getattr(lib, name)(pos.data_ptr(), io.data_ptr(), ptrs,
-                                 len(tables_or_grads), ilv, flv, levels.n_levels,
-                                 cfg.n_features, pos.shape[0], bf16, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (error {err}: "
-                           f"{lib.grid_encode_error_string(err).decode()})")
+    ptrs = (ctypes.c_void_p * len(tables_or_grads))(*[t.data_ptr() for t in tables_or_grads])
+    return (pos.data_ptr(), io.data_ptr(), ptrs, len(tables_or_grads), ilv, flv,
+            levels.n_levels, cfg.n_features, pos.shape[0], bf16)
 
 
 def brick_encode(tables: Sequence[torch.Tensor], positions: torch.Tensor,
@@ -171,8 +145,9 @@ def brick_encode(tables: Sequence[torch.Tensor], positions: torch.Tensor,
                       device=positions.device)
     if positions.shape[0] == 0:
         return out
-    _launch("brick_encode_fwd", tables, positions, out, cfg, levels, groups, bf16)
-    count("launch.brick_encode", 1)
+    LIB.launch("brick_encode_fwd", positions.device,
+               *_entry_args(tables, positions, out, cfg, levels, groups, bf16),
+               counter="launch.brick_encode")
     return out
 
 
@@ -200,8 +175,9 @@ def brick_encode_backward(tables: Sequence[torch.Tensor], positions: torch.Tenso
     grads = [torch.zeros_like(t, dtype=torch.float32) for t in tables]
     if positions.shape[0] == 0:
         return grads
-    _launch("brick_encode_bwd", grads, positions, g, cfg, levels, groups, bf16)
-    count("launch.brick_encode_bwd", 1)
+    LIB.launch("brick_encode_bwd", positions.device,
+               *_entry_args(grads, positions, g, cfg, levels, groups, bf16),
+               counter="launch.brick_encode_bwd")
     return grads
 
 

@@ -18,40 +18,16 @@ gathers and adds nothing in the scatter, where the plain versions raise.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-from pathlib import Path
-from typing import Tuple
-
 import torch
 
-from ...utils.profiling import count
 from . import _build
+from ._build import I32, I64, PTR, STREAM
 
 SOURCE = _build.CSRC / "grid_probe.cu"
+_ROWS = [PTR, PTR, PTR, I64, I32, I32, STREAM]
+LIB = _build.Library(SOURCE, {"gather_rows": _ROWS, "gather_lanes": _ROWS,
+                              "scatter_add_rows": _ROWS, "smem_scratch": [PTR, I64, STREAM]})
 ROW_FLOATS = 128  # smem_scratch's row
-
-
-def build() -> Tuple[Path, float]:
-    """Compile csrc/grid_probe.cu (see _build.build). Returns (path,
-    seconds spent compiling; 0.0 when it was already built)."""
-    return _build.build(SOURCE)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gather_rows.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-    lib.gather_lanes.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-    lib.scatter_add_rows.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-    lib.smem_scratch.argtypes = [ptr, i64, ptr]
-    for fn in (lib.gather_rows, lib.gather_lanes, lib.scatter_add_rows, lib.smem_scratch):
-        fn.restype = ctypes.c_int
-    lib.grid_probe_error_string.argtypes = [i32]
-    lib.grid_probe_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def gather_rows_reference(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -98,16 +74,6 @@ def _check_idx(name: str, idx: torch.Tensor) -> None:
         raise TypeError(f"{name} kernel takes int32 indices, got {idx.dtype}")
 
 
-def _run(name: str, device: torch.device, *args) -> None:
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (error {err}: "
-                           f"{lib.grid_probe_error_string(err).decode()})")
-
-
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i, :] = tab[idx[i], :] for tab [T, W] and idx [N]. The kernel
     copies 16-byte vectors: a row must be a whole number of them."""
@@ -124,9 +90,8 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((idx.shape[0], tab.shape[1]), dtype=tab.dtype, device=tab.device)
     if idx.shape[0] == 0:
         return out
-    _run("gather_rows", tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-         idx.shape[0], row_bytes // 16, tab.shape[0])
-    count("launch.gather_rows", 1)
+    LIB.launch("gather_rows", tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
+               idx.shape[0], row_bytes // 16, tab.shape[0], counter="launch.gather_rows")
     return out
 
 
@@ -143,9 +108,8 @@ def gather_lanes(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty(idx.shape, dtype=tab.dtype, device=tab.device)
     if idx.numel() == 0:
         return out
-    _run("gather_lanes", tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-         idx.shape[0], idx.shape[1], tab.shape[1])
-    count("launch.gather_lanes", 1)
+    LIB.launch("gather_lanes", tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
+               idx.shape[0], idx.shape[1], tab.shape[1], counter="launch.gather_lanes")
     return out
 
 
@@ -167,9 +131,9 @@ def scatter_add_rows(idx: torch.Tensor, val: torch.Tensor, n_rows: int) -> torch
     out = torch.zeros((n_rows, val.shape[1]), dtype=val.dtype, device=val.device)
     if idx.shape[0] == 0:
         return out
-    _run("scatter_add_rows", val.device, idx.data_ptr(), val.data_ptr(), out.data_ptr(),
-         idx.shape[0], val.shape[1] // 4, n_rows)
-    count("launch.scatter_add_rows", 1)
+    LIB.launch("scatter_add_rows", val.device, idx.data_ptr(), val.data_ptr(),
+               out.data_ptr(), idx.shape[0], val.shape[1] // 4, n_rows,
+               counter="launch.scatter_add_rows")
     return out
 
 
@@ -184,6 +148,5 @@ def smem_scratch(n_bytes: int, device="cuda") -> torch.Tensor:
         raise ValueError(f"smem_scratch: unsupported device {device}")
     _scratch_rows(n_bytes)
     out = torch.empty(1, dtype=torch.float32, device=device)
-    _run("smem_scratch", device, out.data_ptr(), n_bytes)
-    count("launch.smem_scratch", 1)
+    LIB.launch("smem_scratch", device, out.data_ptr(), n_bytes, counter="launch.smem_scratch")
     return out

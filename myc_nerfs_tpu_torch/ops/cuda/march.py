@@ -12,14 +12,13 @@ plain version's torch ops round it (ngp_render.py::march_constants).
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-from ...utils.profiling import count
 from . import _build
+from ._build import I64, PTR, STREAM
 
 SOURCE = _build.CSRC / "march.cu"
 
@@ -48,42 +47,23 @@ class MarchConstants(ctypes.Structure):
     ]
 
 
-def build() -> Tuple[Path, float]:
-    """Compile csrc/march.cu (see _build.build). Returns (path, seconds
-    spent compiling; 0.0 when it was already built)."""
-    return _build.build(SOURCE)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    ptr, tail = ctypes.c_void_p, [ctypes.POINTER(MarchConstants), ctypes.c_longlong,
-                                  ctypes.c_void_p]
-    lib.march_rays_fused.argtypes = [ptr] * 12 + tail
-    lib.march_rays_fused_bwd.argtypes = [ptr] * 14 + tail
-    for fn in (lib.march_rays_fused, lib.march_rays_fused_bwd, lib.march_constants_size):
-        fn.restype = ctypes.c_int
-    lib.march_error_string.argtypes = [ctypes.c_int]
-    lib.march_error_string.restype = ctypes.c_char_p
-    if lib.march_constants_size() != ctypes.sizeof(MarchConstants):
-        raise RuntimeError(f"{path}: March holds {lib.march_constants_size()} bytes, "
+def _check_layout(functions, path: Path) -> None:
+    """March and MarchConstants must hold the same bytes."""
+    size = functions["march_constants_size"]()
+    if size != ctypes.sizeof(MarchConstants):
+        raise RuntimeError(f"{path}: March holds {size} bytes, "
                            f"MarchConstants {ctypes.sizeof(MarchConstants)}")
-    return lib
 
 
-def _launch(name: str, c: MarchConstants, n: int, dev: torch.device, *tensors) -> None:
-    """Call the entry point ``name`` on the tensors' pointers (None: null)
-    on torch's current stream; raise on its error."""
-    lib = _library()
-    ptrs = [t.data_ptr() if t is not None else None for t in tensors]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(*ptrs, ctypes.byref(c), n, stream)
-    if err != 0:
-        kind = ValueError if err == -1 else RuntimeError
-        raise kind(f"{name} kernel launch failed (error {err}: "
-                   f"{lib.march_error_string(err).decode()})")
+_TAIL = [ctypes.POINTER(MarchConstants), I64, STREAM]
+LIB = _build.Library(SOURCE, {"march_rays_fused": [PTR] * 12 + _TAIL,
+                              "march_rays_fused_bwd": [PTR] * 14 + _TAIL,
+                              "march_constants_size": []}, on_load=_check_layout)
+
+
+def _ptrs(*tensors):
+    """The tensors' device pointers (None: null)."""
+    return [t.data_ptr() if t is not None else None for t in tensors]
 
 
 def _check(c: MarchConstants, density_grid: torch.Tensor, mean_density: torch.Tensor,
@@ -127,9 +107,9 @@ def _forward(c: MarchConstants, density_grid: torch.Tensor, mean_density: torch.
     outs = (empty(N, K, 3), empty(N, K), empty(N, K, dtype=torch.bool), empty(N),
             empty(N, 3), empty(N, K) if save else None, empty(N) if save else None)
     if N:
-        _launch("march_rays_fused", c, N, dev, rays_o, rays_d, xi, density_grid,
-                mean_density, *outs)
-        count("launch.march_rays_fused", 1)
+        LIB.launch("march_rays_fused", dev, *_ptrs(rays_o, rays_d, xi, density_grid,
+                                                   mean_density, *outs), ctypes.byref(c), N,
+                   counter="launch.march_rays_fused")
     return outs
 
 
@@ -154,10 +134,11 @@ class _MarchFn(torch.autograd.Function):
         g_o, g_d = torch.empty_like(rays_o), torch.empty_like(rays_d)
         g_xi = torch.empty_like(xi) if ctx.needs_input_grad[5] else None
         if N:
-            _launch("march_rays_fused_bwd", ctx.c, N, rays_o.device, rays_o, rays_d, xi, t, u,
-                    dt, n_occ, g_pos.contiguous(), g_t.contiguous(), g_dt.contiguous(),
-                    g_dirs.contiguous(), g_o, g_d, g_xi)
-            count("launch.march_rays_fused_bwd", 1)
+            LIB.launch("march_rays_fused_bwd", rays_o.device,
+                       *_ptrs(rays_o, rays_d, xi, t, u, dt, n_occ, g_pos.contiguous(),
+                              g_t.contiguous(), g_dt.contiguous(), g_dirs.contiguous(),
+                              g_o, g_d, g_xi), ctypes.byref(ctx.c), N,
+                       counter="launch.march_rays_fused_bwd")
         return None, None, None, g_o, g_d, g_xi
 
 

@@ -13,18 +13,14 @@ sh_encode recomputed under autograd.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-from pathlib import Path
-from typing import Tuple
-
 import torch
 
-from ...utils.profiling import count
 from ..sh import sh_encode
 from . import _build
+from ._build import I32, I64, PTR, STREAM
 
 SOURCE = _build.CSRC / "rgb_input.cu"
+LIB = _build.Library(SOURCE, {"rgb_input": [PTR, PTR, I64, I64, PTR, I64, I32, STREAM]})
 WIDTH = 16   # h's columns, and the SH bases' (degree 4)
 DEGREE = 4
 
@@ -33,24 +29,6 @@ def rgb_input_plain(h: torch.Tensor, dirs: torch.Tensor, degree: int = DEGREE) -
     """[h | sh_encode(dirs * 2 - 1, degree, 16) in h's dtype], by torch ops."""
     enc = sh_encode(dirs * 2.0 - 1.0, degree=degree, pad_to=WIDTH)
     return torch.cat([h, enc.to(h.dtype)], dim=-1)
-
-
-def build() -> Tuple[Path, float]:
-    """Compile csrc/rgb_input.cu (see _build.build). Returns (path, seconds
-    spent compiling; 0.0 when it was already built)."""
-    return _build.build(SOURCE)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.rgb_input.argtypes = [ptr, ptr, ll, ll, ptr, ll, ctypes.c_int, ptr]
-    lib.rgb_input.restype = ctypes.c_int
-    lib.rgb_input_error_string.argtypes = [ctypes.c_int]
-    lib.rgb_input_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check(h: torch.Tensor, dirs: torch.Tensor, degree: int) -> None:
@@ -81,16 +59,9 @@ def _forward(h: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     M = h.shape[0]
     x = torch.empty((M, 2 * WIDTH), dtype=h.dtype, device=h.device)
     if M:
-        lib = _library()
-        with torch.cuda.device(h.device):
-            stream = torch.cuda.current_stream(h.device).cuda_stream
-            err = lib.rgb_input(h.data_ptr(), dirs.data_ptr(), dirs.stride(0), dirs.stride(1),
-                                x.data_ptr(), M, int(h.dtype == torch.bfloat16), stream)
-        if err != 0:
-            kind = ValueError if err == -1 else RuntimeError
-            raise kind(f"rgb_input kernel launch failed (error {err}: "
-                       f"{lib.rgb_input_error_string(err).decode()})")
-        count("launch.rgb_input", 1)
+        LIB.launch("rgb_input", h.device, h.data_ptr(), dirs.data_ptr(), dirs.stride(0),
+                   dirs.stride(1), x.data_ptr(), M, int(h.dtype == torch.bfloat16),
+                   counter="launch.rgb_input")
     return x
 
 

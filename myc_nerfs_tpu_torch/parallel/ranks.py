@@ -26,16 +26,12 @@ KERNEL_COUNTERS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_b
 
 
 def prebuild(device) -> None:
-    """Build the NGP kernels in this process before ranks are spawned, so
-    that each rank only loads them (a no-op on the CPU)."""
+    """Build the kernels in this process before ranks are spawned, so that
+    each rank only loads them (a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
-        from ..ops.cuda import fused_mlp as fm
-        from ..ops.cuda import grid_encode as ge
-        from ..ops.cuda import march as mc
-        from ..ops.cuda import rgb_input as ri
+        from ..ops.cuda import _build
 
-        for m in (fm, ge, mc, ri):
-            m.build()
+        _build.build_all()
 
 
 def reset_launches() -> None:

@@ -245,8 +245,9 @@ def march_rays_fused_plain(occ_cfg: OccupancyConfig, rcfg: NGPRenderConfig,
                            rays_d: torch.Tensor, xi: Optional[torch.Tensor] = None,
                            n_samples: Optional[int] = None,
                            trunc_eps: Optional[float] = None) -> MarchedRays:
-    """march_rays_fused as torch ops: its CPU and autograd path, and the
-    kernel's oracle on the card."""
+    """march_rays_fused as torch ops: its path for CPU rays, and on the card
+    the oracle of its kernels (CUDA rays, with or without a gradient, run
+    the forward kernel and its backward)."""
     K = n_samples or rcfg.n_samples
     eps = rcfg.early_stop_eps if trunc_eps is None else trunc_eps
     tmin, span, wb, thresh, occ_c, logT_prev = _coarse_pass(occ_cfg, rcfg, occ_state,

@@ -11,6 +11,7 @@ import torch
 
 from myc_nerfs_tpu_torch.models import ngp
 from myc_nerfs_tpu_torch.ops import brick_grid as bg
+from myc_nerfs_tpu_torch.ops.cuda import _build
 from myc_nerfs_tpu_torch.ops.cuda import grid_encode as ge
 from myc_nerfs_tpu_torch.ops.cuda import grid_probe as gp
 from myc_nerfs_tpu_torch.utils import profiling
@@ -196,23 +197,18 @@ def test_brick_encode_refuses_what_the_kernel_does_not_take(cuda_device):
         ge.brick_encode(tables, pos.double(), cfg, levels, groups)
 
 
-def test_broken_build_raises_and_is_not_replaced(cuda_device, tmp_path):
+def test_broken_build_raises_and_is_not_replaced(cuda_device, tmp_path, monkeypatch):
     """A source nvcc refuses makes paired_encode on CUDA tensors raise with
     nvcc's output; nothing falls back to the plain version."""
     cfg, levels, groups, tables, pos = _setup("demo", 10, cuda_device)
     broken = tmp_path / "grid_encode.cu"
     broken.write_text("this is not C++\n")
-    source = ge.SOURCE
-    ge._library.cache_clear()
-    ge.SOURCE = broken
-    try:
+    with monkeypatch.context() as m:
+        m.setattr(ge, "LIB", _build.Library(broken, ge.LIB.entries))
         before = launches("brick_encode")
         with pytest.raises(RuntimeError, match="nvcc failed"):
             bg.paired_encode(tables, pos, cfg, levels, groups)
         assert launches("brick_encode") == before
-    finally:
-        ge.SOURCE = source
-        ge._library.cache_clear()
     bg.paired_encode(tables, pos, cfg, levels, groups)
 
 

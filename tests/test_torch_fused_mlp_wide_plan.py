@@ -1,14 +1,23 @@
 """The wide fused-MLP kernels' host side on the CPU: the launch plan
 (ops/cuda/fused_mlp.py::wide_plan: scratch planes, row splits), the bf16 hi/lo arithmetic of the dW product emulated in torch
-against the plain backward, and the build key that names a compiled
-library (ops/cuda/_build.py). The kernels themselves run in
-test_torch_cuda_kernels.py on a GPU."""
+against the plain backward, and the seam every kernel is built, loaded and
+launched through (ops/cuda/_build.py: the build key that names a compiled
+library, the list of sources, the error codes). The kernels themselves run
+in test_torch_cuda_*.py on a GPU."""
+import contextlib
+import importlib
+import os
+import pkgutil
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from myc_nerfs_tpu_torch.ops import cuda as cuda_ops
 from myc_nerfs_tpu_torch.ops.cuda import _build
 from myc_nerfs_tpu_torch.ops.cuda import fused_mlp as fm
+from myc_nerfs_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -186,4 +195,74 @@ def test_build_key_follows_included_headers(tmp_path):
 
 def test_build_key_of_the_fused_mlp_source_covers_hopper_cuh():
     names = [p.name for p in _build.sources(fm.SOURCE)]
-    assert names == ["fused_mlp.cu", "hopper.cuh"]
+    assert names == ["fused_mlp.cu", "error_text.cuh", "hopper.cuh"]
+
+
+def _wrapper_libraries():
+    """(module, Library) for every Library a wrapper module under ops/cuda/
+    holds."""
+    found = []
+    for info in pkgutil.iter_modules(cuda_ops.__path__):
+        if not info.name.startswith("_"):
+            mod = importlib.import_module(f"{cuda_ops.__name__}.{info.name}")
+            found += [(info.name, v) for v in vars(mod).values()
+                      if isinstance(v, _build.Library)]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu")))
+def test_every_kernel_source_is_loaded_by_one_wrapper(name):
+    """Each csrc/*.cu is a kernel source (build_all builds it), is loaded by
+    exactly one wrapper's entry-point table, and includes the one error text."""
+    source = _build.CSRC / name
+    assert source in _build.kernel_sources()
+    owners = [mod for mod, lib in _wrapper_libraries() if lib.source == source]
+    assert len(owners) == 1, owners
+    assert "error_text.cuh" in [p.name for p in _build.sources(source)]
+
+
+def test_no_wrapper_names_a_missing_source():
+    libraries = _wrapper_libraries()
+    assert libraries
+    for mod, lib in libraries:
+        assert lib.source in _build.kernel_sources(), (mod, lib.source)
+
+
+def test_one_definition_of_the_error_text():
+    defining = [p.name for p in sorted(_build.CSRC.iterdir()) if p.suffix in (".cu", ".cuh")
+                and "kernel_error_string(int code) {" in p.read_text()]
+    assert defining == ["error_text.cuh"]
+
+
+def test_launch_maps_error_codes_and_counts_only_successes(monkeypatch):
+    """Library.launch appends the current stream, raises ValueError on -1
+    and RuntimeError on any other non-zero code, each with the library's
+    text, and counts a launch only after a call that returned 0."""
+    calls, codes = [], iter([-1, 700, 0])
+
+    def entry(*args):
+        calls.append(args)
+        return next(codes)
+
+    texts = {-1: b"arguments outside what the kernel takes",
+             700: b"an illegal memory access was encountered"}
+    lib = _build.Library(_build.CSRC / "rgb_input.cu", {"rgb_input": []})
+    monkeypatch.setattr(lib, "load", lambda: {"rgb_input": entry,
+                                              "kernel_error_string": texts.__getitem__})
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=1234))
+
+    def launches():
+        return profiling.counts(traced=False)["launch.rgb_input"]
+
+    before = launches()
+    with pytest.raises(ValueError, match=r"^rgb_input kernel launch failed \(error -1: "
+                                         r"arguments outside what the kernel takes\)$"):
+        lib.launch("rgb_input", "cuda:0", 1, 2, counter="launch.rgb_input")
+    with pytest.raises(RuntimeError, match=r"\(error 700: an illegal memory access"):
+        lib.launch("rgb_input", "cuda:0", 1, 2, counter="launch.rgb_input")
+    assert launches() == before
+    lib.launch("rgb_input", "cuda:0", 1, 2, counter="launch.rgb_input")
+    assert launches() == before + 1
+    assert calls == [(1, 2, 1234)] * 3
