@@ -63,6 +63,18 @@ Phases, each ending in one line (a failure exits non-zero):
    directions with the 0 and 1 borders: every element equal bit for bit; the
    device time (graph_ms) and the call's (median_ms) of both, and the bound of
    the bytes the kernel must move (h and dirs in, x out: rgb_input_bound).
+5d. composite: the NGP compositor kernel (csrc/composite.cu, through
+   render/ngp_render.py::composite_marched) against composite_marched_plain,
+   the eager composition it replaces, on phase 5b's Car samples with the
+   seeded field's raw: one render chunk (K = n_samples, one background)
+   and one training batch (K = n_compact, per-ray backgrounds), to the card
+   tests' tolerances (tests/test_torch_cuda_composite.py, rays within
+   rounding of the early stop's eps left out); the device and call times of
+   both and the bound of the bytes the kernel must move (composite_bound).
+   Then the backward kernel at the training batch: the gradient to raw of
+   a random linear function of rgb against autograd through the plain
+   version (norm of the difference over the norm), and both backwards'
+   call times. Phase 7 counts its launches over two frames (one per chunk).
 6. probe: the gather / scatter-add rate probes of cli/probe_grid.py, one
    line each, with their library calls and bounds; every probe must be
    correct. The kernels line's gather_lanes entry is the 65536x128 probe
@@ -72,8 +84,9 @@ Phases, each ending in one line (a failure exits non-zero):
    weights, 16 occupancy-grid updates, then two 800x800 frames rendered
    along the spherical path; the frames must be finite and not all
    background, and the grid updates and the render must each have run
-   the encode and MLP kernels, and the march kernel once per 4096-ray
-   chunk. One chunk of rays is rendered again
+   the encode and MLP kernels, and the march, rgb-input and compositor
+   kernels once per 4096-ray chunk (the compositor's backward never). One
+   chunk of rays is rendered again
    through the plain encode and MLP and compared.
 8. train: the same Car config on the synthetic scene (12 views at
    128x128; the model and training settings as the file gives them)
@@ -195,9 +208,11 @@ Phases, each ending in one line (a failure exits non-zero):
 23. pose_chain: cli/pose_chain, the slice's main path, at L16F2 width cut to
    CHAIN_ARGV (GARF 512 steps, NGP 256 per leg, 128^2, 12 views, tt 100):
    each NGP leg's train PSNR must rise, the four NGP kernels run, and the
-   march kernel and its backward (test-time optimisation) run; on view 0
-   of the gt leg, d loss / d se3 through the kernels against the plain
-   versions (march_rays_fused_plain for the march) within CHAIN_GRAD_TOL;
+   march and compositor kernels and their backwards (test-time
+   optimisation) run; on view 0 of the gt leg, d loss / d se3 through the
+   kernels (one compositor launch each way) against the plain versions
+   (march_rays_fused_plain for the march, composite_marched_plain for the
+   compositor) within CHAIN_GRAD_TOL;
    the test-time backward kernel's time at its rows (its dW is discarded).
 24. tensorf_budget: cli/tensorf_budget on Coffee.txt at 128^2, 12 views,
    BUDGET_STEPS steps straight (twice) and split by --stop_at / --resume:
@@ -254,7 +269,7 @@ FRAMES, H, W = 2, 800, 800          # configs/ngp/Car.py test split
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 TRAIN_STEPS, TRAIN_VIEWS, TRAIN_SIZE = 256, 12, 128
 TRAIN_KERNELS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd",
-                 "rgb_input")
+                 "rgb_input", "ngp_composite", "ngp_composite_bwd")
 # the last block's mean train PSNR must beat the first block's by this much
 # (dB): half, rounded down, of the 18.7 dB rise (13.0 -> 31.8) of the first
 # run of this phase on an H100
@@ -415,7 +430,7 @@ def dtype_name(dtype) -> str:
 # counter is launch.<name>)
 KERNELS = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide", "fused_mlp_wide_bwd",
            "brick_encode", "brick_encode_bwd", "march_rays_fused", "march_rays_fused_bwd",
-           "rgb_input", "gather_rows",
+           "rgb_input", "ngp_composite", "ngp_composite_bwd", "gather_rows",
            "gather_lanes", "scatter_add_rows", "smem_scratch")
 
 
@@ -799,7 +814,7 @@ def phase_march():
     entries of the kernels line."""
     from myc_nerfs_tpu_torch.render import ngp_render as nr
 
-    tests = march_card_tests()
+    tests = card_tests("test_torch_cuda_march")
     trainer, states, batches = march_inputs()
     occ_cfg, rcfg = trainer.occ_cfg, trainer.rcfg
     eps = rcfg.early_stop_eps
@@ -857,14 +872,15 @@ def phase_march():
     return stats, bwd_stats
 
 
-def march_card_tests():
-    """tests/test_torch_cuda_march.py, loaded from its path, for the helpers
-    phase_march shares with the card tests (truncation_margin, march_loss,
-    rays_off)."""
+def card_tests(name: str):
+    """tests/<name>.py, loaded from its path, for the helpers a phase shares
+    with the card tests (test_torch_cuda_march: truncation_margin,
+    march_loss, rays_off; test_torch_cuda_composite: near_eps,
+    output_errors and the tolerances)."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "tests" / "test_torch_cuda_march.py"
-    spec = importlib.util.spec_from_file_location("test_torch_cuda_march", path)
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -941,6 +957,98 @@ def phase_rgb_input():
                                     "library_ms": None, "bound_ms": work["bound_ms"],
                                     "bound_by": work["bound_by"]}
     return {**stats["bfloat16"], "float32": stats["float32"]}
+
+
+def composite_bound(n_rays: int, n_samples: int) -> dict:
+    """The H100 bound of the bytes the compositor kernel must move for
+    n_rays rays of n_samples samples, each once: raw [N, K, 4] f32, t and
+    valid [N, K] and dt (one f32 per ray, the march's step broadcast over
+    the samples) in; rgb, depth and opacity out (n_samples is valid.sum(),
+    torch's launch)."""
+    from myc_nerfs_tpu_torch.utils.timing import roofline
+
+    nbytes = n_rays * n_samples * (16 + 4 + 1) + n_rays * (4 + 12 + 4 + 4)
+    return roofline(0, nbytes, torch.float32)
+
+
+def phase_composite():
+    """Phase 5d: the compositor kernel against composite_marched_plain on
+    marched Car samples and the seeded field's raw, at one render chunk
+    (K = n_samples, one background) and one training batch (K = n_compact,
+    per-ray backgrounds), then the backward kernel at the training batch
+    against autograd through the plain version. Returns the forward's and
+    the backward's entries of the kernels line. (Phase 7 counts the
+    forward's launches over two 800x800 frames: one per chunk, 314.)"""
+    from myc_nerfs_tpu_torch.render import ngp_render as nr
+
+    tests = card_tests("test_torch_cuda_composite")
+    trainer, states, batches = march_inputs()
+    occ_cfg, rcfg, state = trainer.occ_cfg, trainer.rcfg, states["grid"]
+    eps = rcfg.early_stop_eps
+    if eps != tests.EPS:
+        fail(f"Car's early_stop_eps {eps} is not the card tests' {tests.EPS}")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    fwd = bwd = {}
+    for bname, (o, d, xi, K) in batches.items():
+        N = o.shape[0]
+        bg = (torch.ones(3, device="cuda") if bname == "render"
+              else torch.rand((N, 3), device="cuda", generator=g))
+        with torch.no_grad():
+            marched = nr.march_rays_fused(occ_cfg, rcfg, state, o, d, xi, n_samples=K)
+            raw = trainer.model(marched.positions.reshape(-1, 3),
+                                marched.dirs.reshape(-1, 3)).reshape(N, K, 4)
+
+            def kernel():
+                return nr.composite_marched(raw, marched, bg, eps)
+
+            def plain():
+                return nr.composite_marched_plain(raw, marched, bg, eps)
+
+            got, want = kernel(), plain()
+            keep = ~tests.near_eps(raw, marched, eps)
+            errors = tests.output_errors(got, want, keep)
+            same_n = int(got.n_samples) == int(want.n_samples)
+            t_k, t_c = graph_ms(kernel), median_ms(kernel)
+            t_p, t_pc = graph_ms(plain), median_ms(plain)
+        n_near = int((~keep).sum())
+        work = composite_bound(N, K)
+        ok = (same_n and tests.within_tolerances(errors)
+              and n_near <= max(1, int(tests.NEAR_SHARE * N)))
+        print(f"composite: {bname} {N}x{K} valid={marched.valid.float().mean().item():.4f} "
+              f"near_eps_rays={n_near} max_abs rgb={errors['rgb']:.3e} "
+              f"opacity={errors['opacity']:.3e} depth_rel={errors['depth_rel']:.3e} "
+              f"n_samples_equal={same_n} {'ok' if ok else 'BREACH'} "
+              f"{bound_fields(t_k, work)} call_ms={t_c:.4f} plain_ms={t_p:.4f} "
+              f"plain_call_ms={t_pc:.4f}", flush=True)
+        if not ok:
+            fail(f"compositor kernel {bname}: outside the card tests' tolerances")
+        if bname == "render":
+            fwd = {"max_abs_rgb": errors["rgb"], "near_eps_rays": n_near, "ms": t_k,
+                   "call_ms": t_c, "plain_ms": t_p, "plain_call_ms": t_pc, "library_ms": None,
+                   "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
+            continue
+
+        g_rgb = torch.randn((N, 3), device="cuda", generator=g)
+
+        def backward(fn):
+            r = raw.clone().requires_grad_()
+            return r, (fn(r, marched, bg, eps).rgb * g_rgb).sum()
+
+        r_k, l_k = backward(nr.composite_marched)
+        r_p, l_p = backward(nr.composite_marched_plain)
+        (g_k,) = torch.autograd.grad(l_k, r_k, retain_graph=True)
+        (g_p,) = torch.autograd.grad(l_p, r_p, retain_graph=True)
+        err = ((g_k - g_p)[keep].norm() / g_p[keep].norm()).item()
+        t_k = median_ms(lambda: torch.autograd.grad(l_k, r_k, retain_graph=True))
+        t_p = median_ms(lambda: torch.autograd.grad(l_p, r_p, retain_graph=True))
+        ok = err <= tests.GRAD_RTOL and bool(torch.isfinite(g_k).all())
+        print(f"composite_bwd: train {N}x{K} raw gradient |a-b|/|b| {err:.3e} (tol "
+              f"{tests.GRAD_RTOL:g}) {'ok' if ok else 'BREACH'} backward call_ms={t_k:.4f} "
+              f"plain_call_ms={t_p:.4f}", flush=True)
+        if not ok:
+            fail(f"compositor backward: raw gradient {err:.3e} off autograd's")
+        bwd = {"grad_rel_err": err, "call_ms": t_k, "plain_call_ms": t_p, "library_ms": None}
+    return fwd, bwd
 
 
 # each probe kernel's entry in the JSON line: the probe record it takes its
@@ -1021,7 +1129,7 @@ def phase_slice(card: str):
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rgb = torch.stack(frames)
-    bg = torch.tensor(trainer.cfg.background_color, device="cuda")
+    bg = torch.tensor(trainer.cfg.background_color, dtype=torch.float32, device="cuda")
     non_bg = ((rgb - bg).abs().amax(-1) > 1e-3).float().mean().item()
     rays_s = FRAMES * H * W / t_render
     print(f"slice: Car L16F2 2^19 aabb_scale=4 bf16 use_fully "
@@ -1034,7 +1142,8 @@ def phase_slice(card: str):
           f"render_launches fused_mlp={launches['fused_mlp']} "
           f"brick_encode={launches['brick_encode']} "
           f"march_rays_fused={launches['march_rays_fused']} "
-          f"rgb_input={launches['rgb_input']} [{card}]", flush=True)
+          f"rgb_input={launches['rgb_input']} ngp_composite={launches['ngp_composite']} "
+          f"ngp_composite_bwd={launches['ngp_composite_bwd']} [{card}]", flush=True)
     if tuple(rgb.shape) != (FRAMES, H, W, 3) or not torch.isfinite(rgb).all():
         fail("render output is not finite or has the wrong shape")
     if non_bg < 1e-3:
@@ -1043,10 +1152,12 @@ def phase_slice(card: str):
         if counts["fused_mlp"] == 0 or counts["brick_encode"] == 0:
             fail(f"the {name} did not run the fused_mlp and brick_encode kernels")
     chunks = FRAMES * math.ceil(H * W / 4096)
-    for kernel in ("march_rays_fused", "rgb_input"):
+    for kernel in ("march_rays_fused", "rgb_input", "ngp_composite"):
         if launches[kernel] != chunks:
             fail(f"the render ran the {kernel} kernel {launches[kernel]} times, "
                  f"not once per chunk ({chunks})")
+    if launches["ngp_composite_bwd"]:
+        fail("the render ran the compositor's backward kernel")
 
     # the same rays through the plain encode and MLP: the slice agrees with
     # its reference path (bf16 both ways; see TOL for the rounding allowance)
@@ -2778,7 +2889,8 @@ EVAL_STEPS, EVAL_START, EVAL_TEST_ITER = 256, 9, 1
 # (the reference scale: GARF 50000, NGP 6000 per leg, 256^2, 36 views, tt
 # 1500); then, on one view of the gt leg, d loss / d se3 through the
 # kernels against the plain versions (fused_mlp_plain's reference MLP,
-# paired_encode_reference), |a - b| / |b| within CHAIN_GRAD_TOL: the two
+# paired_encode_reference, march_rays_fused_plain, composite_marched_plain),
+# |a - b| / |b| within CHAIN_GRAD_TOL: the two
 # differ by the bf16 MLPs' rounding in another order
 CHAIN_ARGV = ["--garf_steps", "512", "--ngp_steps", "256", "--size", "128", "--views", "12",
               "--tt_iters", "100", "--log_every", "256"]
@@ -2864,7 +2976,8 @@ def phase_evaluate(card: str):
 
 def chain_pose_gradient(trainer, scene, vi: int, n_rays: int, kernels: bool):
     """d loss / d se3 of cli/pose_chain's test-time loss at se3 = 0 on view
-    vi, through the kernels or through the plain versions."""
+    vi, through the kernels or through the plain versions, and the kernel
+    launches it made."""
     from unittest import mock
 
     from myc_nerfs_tpu_torch.cli import pose_chain as pc
@@ -2875,8 +2988,11 @@ def chain_pose_gradient(trainer, scene, vi: int, n_rays: int, kernels: bool):
     model.use_encode_kernel = kernels
     model.net.use_fully = kernels
     march = nr.march_rays_fused if kernels else nr.march_rays_fused_plain
+    composite = nr.composite_marched if kernels else nr.composite_marched_plain
+    reset_launches()
     try:
-        with mock.patch.object(nr, "march_rays_fused", march):
+        with mock.patch.object(nr, "march_rays_fused", march), \
+                mock.patch.object(nr, "composite_marched", composite):
             loss_fn = make_ngp_pose_loss(trainer.occ_cfg, trainer.rcfg, model, trainer.state.occ,
                                          scene.poses[vi].cuda(), scene.intr[vi].cuda(),
                                          scene.images[vi].cuda(), scene.H, scene.W,
@@ -2891,7 +3007,7 @@ def chain_pose_gradient(trainer, scene, vi: int, n_rays: int, kernels: bool):
     finally:
         model.use_encode_kernel = True
         model.net.use_fully = True
-    return float(loss), g
+    return float(loss), g, read_launches()
 
 
 def phase_pose_chain(card: str):
@@ -2948,9 +3064,12 @@ def phase_pose_chain(card: str):
         fail(f"pose_chain: an NGP kernel did not run: {launches}")
     trainer, scene = legs["gt"]["trainer"], res["scene"]
     n_rays = pc.parse_args(CHAIN_ARGV).tt_rays
-    l_k, g_k = chain_pose_gradient(trainer, scene, 0, n_rays, kernels=True)
-    l_p, g_p = chain_pose_gradient(trainer, scene, 0, n_rays, kernels=False)
+    l_k, g_k, n_k = chain_pose_gradient(trainer, scene, 0, n_rays, kernels=True)
+    l_p, g_p, n_p = chain_pose_gradient(trainer, scene, 0, n_rays, kernels=False)
     err = float((g_k - g_p).norm() / g_p.norm())
+    pair = ("ngp_composite", "ngp_composite_bwd")
+    if [n_k[k] for k in pair] != [1, 1] or any(n_p[k] for k in pair):
+        fail(f"pose_chain: compositor launches for d loss / d se3: kernels {n_k}, plain {n_p}")
     # the backward kernel of one test-time iteration: the rgb MLP at
     # tt_rays x n_compact rows, bf16; dW is a third of its products
     rows = n_rays * trainer.rcfg.n_compact
@@ -2968,6 +3087,7 @@ def phase_pose_chain(card: str):
     print(f"pose_chain_grad: gt leg view 0, {n_rays} rays, se3 = 0: loss kernels {l_k:.6f} "
           f"plain {l_p:.6f}; d loss / d se3 kernels {g_k.cpu().numpy().round(6).tolist()} plain "
           f"{g_p.cpu().numpy().round(6).tolist()} |a-b|/|b|={err:.3e} limit={CHAIN_GRAD_TOL:.3e}; "
+          f"launches kernels {launch_text(n_k)} plain {launch_text(n_p)}; "
           f"tt backward: fused_mlp_backward rgb {'x'.join(map(str, widths))} bf16 rows={rows} "
           f"need_dx kernel_ms={t_bwd:.4f} (dW {macs} of {3 * macs} MACs per row, discarded) "
           f"forward kernel_ms={t_fwd:.4f}; mean tt iteration {tt_ms:.3f} ms [{card}]",
@@ -3270,6 +3390,11 @@ KERNELS = {
     "march_rays_fused_bwd": ("march.cu", "myc_nerfs_tpu/render/ngp_render.py:220", []),
     # no Pallas kernel: the JAX package's SH encode and concatenation are XLA
     "rgb_input": ("rgb_input.cu", "myc_nerfs_tpu/models/ngp.py:258", []),
+    # no Pallas kernel: the JAX package's compositor is XLA
+    "ngp_composite": ("composite.cu", "myc_nerfs_tpu/render/composite.py:66",
+                      ["myc_nerfs_tpu/render/composite.py:95"]),
+    "ngp_composite_bwd": ("composite.cu", "myc_nerfs_tpu/render/composite.py:66",
+                          ["myc_nerfs_tpu/render/composite.py:95"]),
     "gather_rows": ("grid_probe.cu", "scripts/probe_r2_pallas.py:83",
                     ["scripts/probe_r2_pallas.py:108", "scripts/probe_r2_pallas.py:138",
                      "scripts/probe_r2b_kernel.py:60", "scripts/probe_r2b_kernel.py:87",
@@ -3303,6 +3428,7 @@ def main() -> None:
     stats["brick_encode"], stats["brick_encode_bwd"] = phase_kernel_encode()
     stats["march_rays_fused"], stats["march_rays_fused_bwd"] = phase_march()
     stats["rgb_input"] = phase_rgb_input()
+    stats["ngp_composite"], stats["ngp_composite_bwd"] = phase_composite()
     stats["fused_mlp_wide"], stats["fused_mlp_wide_bwd"] = phase_kernel_wide(fm)
     probe = phase_probe()
     grid, render = phase_slice(smi)

@@ -125,7 +125,8 @@ def build_all() -> Dict[str, Tuple[Path, float]]:
 
 # argument types of the entry-point tables; STREAM is the cudaStream_t
 # every launched entry point takes last
-PTR, I32, I64, STREAM = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+PTR, I32, I64, F32, STREAM = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                              ctypes.c_void_p)
 
 
 class Library:

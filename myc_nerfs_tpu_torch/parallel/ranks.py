@@ -22,7 +22,7 @@ from . import spmd
 from ..utils import profiling
 
 KERNEL_COUNTERS = ("fused_mlp", "fused_mlp_bwd", "brick_encode", "brick_encode_bwd",
-                   "march_rays_fused", "rgb_input")
+                   "march_rays_fused", "rgb_input", "ngp_composite", "ngp_composite_bwd")
 
 
 def prebuild(device) -> None:

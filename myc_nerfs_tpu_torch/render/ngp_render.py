@@ -14,7 +14,9 @@ in training ``compact_marched`` keeps the first n_compact samples before
 the transmittance falls below eps, from the density grid
 (``compact_source='grid'``) or from a detached density forward of the
 network (``'network'``, the reference's CompactedCoord). The samples go
-through the field and the NGP compositor.
+through the field and the NGP compositor: on CUDA tensors one launch of
+csrc/composite.cu (ops/cuda/composite.py), and one of its backward where
+autograd records; ``composite_marched_plain``, its oracle, on the CPU.
 
 Positions are warped to [0, 1] over the cascade AABB and directions to
 [0, 1], as the network expects (ray_sampler_header.h:790-822).
@@ -30,6 +32,7 @@ import torch
 
 from ..models.ngp import density_activation, rgb_activation
 from ..ops.compaction import compact_first_k
+from ..ops.cuda import composite as composite_cuda
 from ..ops.cuda import march as march_cuda
 from ..utils import profiling
 from .composite import composite_rgb, composite_weights
@@ -316,7 +319,23 @@ def render_marched(model_apply: Callable, marched: MarchedRays,
 def composite_marched(raw: torch.Tensor, marched: MarchedRays,
                       bg_color: torch.Tensor, early_stop_eps: float = 1e-4
                       ) -> NGPRenderOut:
-    """Composite the field's raw [N, K, 4] on marched samples (CalcRgb fwd)."""
+    """Composite the field's raw [N, K, 4] on marched samples (CalcRgb fwd).
+
+    CUDA tensors launch the kernel of csrc/composite.cu (its backward kernel
+    carries the gradients to raw, dt and t where autograd records: training,
+    and test-time pose optimisation through the march's backward); CPU
+    tensors run composite_marched_plain."""
+    if raw.device.type != "cuda":
+        return composite_marched_plain(raw, marched, bg_color, early_stop_eps)
+    return NGPRenderOut(*composite_cuda.ngp_composite(raw, marched.dt, marched.t, marched.valid,
+                                                      bg_color, early_stop_eps))
+
+
+def composite_marched_plain(raw: torch.Tensor, marched: MarchedRays,
+                            bg_color: torch.Tensor, early_stop_eps: float = 1e-4
+                            ) -> NGPRenderOut:
+    """composite_marched as torch ops: its path on the CPU, and on the card
+    the oracle of its kernels; autograd differentiates it."""
     sigma = density_activation(raw[..., 3])
     rgb_s = rgb_activation(raw[..., :3])
     weights, t_left = composite_weights(sigma, marched.dt, marched.valid,

@@ -84,6 +84,8 @@ COUNTERS: Dict[str, str] = {
     "launch.march_rays_fused": "fused NGP march kernel launches",
     "launch.march_rays_fused_bwd": "fused NGP march backward kernel launches",
     "launch.rgb_input": "NGP rgb-MLP input kernel launches ([h | SH(dirs)])",
+    "launch.ngp_composite": "NGP compositor kernel launches",
+    "launch.ngp_composite_bwd": "NGP compositor backward kernel launches",
     "launch.gather_rows": "grid probe gather_rows launches",
     "launch.gather_lanes": "grid probe gather_lanes launches",
     "launch.scatter_add_rows": "grid probe scatter_add_rows launches",
