@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..geom import rays as rays_lib
+from ..utils import profiling
 from . import sampling
 from .composite import composite_nerf
 
@@ -49,13 +50,16 @@ def render_rays_mlp(apply_fn, center: torch.Tensor, ray: torch.Tensor,
 
 
 def _eval_and_composite(apply_fn, center, ray, depth, bg_color, view_dep) -> RenderOut:
-    points = center[..., None, :] + ray[..., None, :] * depth
-    ray_unit = None
-    if view_dep:
-        ray_unit = ray / (torch.linalg.norm(ray, dim=-1, keepdim=True) + 1e-8)
-        ray_unit = ray_unit[..., None, :].expand(points.shape)
-    rgb_s, sigma_s = apply_fn(points, ray_unit)
-    return RenderOut(*composite_nerf(ray, rgb_s, sigma_s, depth, bg_color=bg_color))
+    with profiling.span("nerf.field"):
+        points = center[..., None, :] + ray[..., None, :] * depth
+        ray_unit = None
+        if view_dep:
+            ray_unit = ray / (torch.linalg.norm(ray, dim=-1, keepdim=True) + 1e-8)
+            ray_unit = ray_unit[..., None, :].expand(points.shape)
+        rgb_s, sigma_s = apply_fn(points, ray_unit)
+    profiling.count("nerf.samples", points.shape[:-1].numel())
+    with profiling.span("nerf.composite"):
+        return RenderOut(*composite_nerf(ray, rgb_s, sigma_s, depth, bg_color=bg_color))
 
 
 def render_image_mlp(apply_fn, pose: torch.Tensor, intr: torch.Tensor, H: int, W: int,

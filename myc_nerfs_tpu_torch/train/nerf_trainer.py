@@ -29,6 +29,7 @@ from ..geom import pose as pose_lib
 from ..geom import rays as rays_lib
 from ..models.nerf_mlp import CoarseFine, NeRFMLP, garf_mlp
 from ..render.mlp_renderer import render_image_mlp, render_rays_mlp
+from ..utils import profiling
 from ..utils.metrics import img2mse, mse2psnr
 from .ngp_trainer import AdamState, _weak, adam_step, init_adam
 
@@ -148,7 +149,10 @@ def compose_refined_pose(cfg: NeRFTrainConfig, state: NeRFTrainState,
     if not cfg.refine_pose:
         return poses
     refined = pose_lib.compose_pair(lie.se3_to_SE3(state.se3_refine), poses)
-    return torch.where(state.step >= cfg.start_pose_correct_iter, refined, poses)
+    gate = state.step >= cfg.start_pose_correct_iter
+    # a device scalar: kept while a profiler records, no sync
+    profiling.count("nerf.pose_refined", gate)
+    return torch.where(gate, refined, poses)
 
 
 def init_state(cfg: NeRFTrainConfig, generator: torch.Generator, n_images: int,
@@ -205,10 +209,11 @@ def make_loss(cfg: NeRFTrainConfig, images: torch.Tensor, poses_gt: torch.Tensor
         return apply_fn
 
     def loss_fn(state: NeRFTrainState, draws: StepDraws):
-        poses = compose_refined_pose(cfg, state, poses_gt)
+        with profiling.span("nerf.pose"):
+            poses = compose_refined_pose(cfg, state, poses_gt)
+            center, ray = rays_lib.get_center_and_ray(poses, intr, H, W,
+                                                      xy_grid=grid[draws.ray_idx])
         progress = state.step.float() / cfg.max_iter
-        center, ray = rays_lib.get_center_and_ray(poses, intr, H, W,
-                                                  xy_grid=grid[draws.ray_idx])
         target = pixels[:, draws.ray_idx]
         render = dict(rand=draws.depth, n_samples=cfg.sample_intvs,
                       depth_range=cfg.depth_range, bg_color=bg, view_dep=cfg.view_dep)
@@ -246,27 +251,29 @@ def make_train_step(cfg: NeRFTrainConfig, images: torch.Tensor, poses_gt: torch.
 
     def step(state: NeRFTrainState, draws: StepDraws
              ) -> Tuple[NeRFTrainState, Dict[str, torch.Tensor]]:
-        params = state.params.param_list()
-        se3 = state.se3_refine.detach().requires_grad_(cfg.refine_pose)
-        with torch.enable_grad():
-            loss, psnr = loss_fn(state._replace(se3_refine=se3), draws)
-            wrt = params + ([se3] if cfg.refine_pose else [])
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(wrt, grads)]
-        if reduce_grads is not None:
-            grads = reduce_grads(grads)
-        with torch.no_grad():
-            updates, opt_state = adam_step(sched, BETAS, EPS, grads[:len(params)],
-                                           state.opt_state)
-            torch._foreach_add_(params, updates)
-            se3_refine, opt_state_pose = state.se3_refine, state.opt_state_pose
-            if cfg.refine_pose:
-                up_pose, opt_state_pose = adam_step(sched_pose, BETAS, EPS, grads[-1:],
-                                                    state.opt_state_pose)
-                se3_refine = state.se3_refine + up_pose[0]
-        new_state = state._replace(se3_refine=se3_refine, opt_state=opt_state,
-                                   opt_state_pose=opt_state_pose, step=state.step + 1)
-        return new_state, {"loss": loss.detach(), "psnr": psnr.detach()}
+        with profiling.span("nerf.step"):
+            params = state.params.param_list()
+            se3 = state.se3_refine.detach().requires_grad_(cfg.refine_pose)
+            with torch.enable_grad():
+                loss, psnr = loss_fn(state._replace(se3_refine=se3), draws)
+                wrt = params + ([se3] if cfg.refine_pose else [])
+                with profiling.span("nerf.backward"):
+                    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(wrt, grads)]
+            if reduce_grads is not None:
+                grads = reduce_grads(grads)
+            with torch.no_grad(), profiling.span("nerf.update"):
+                updates, opt_state = adam_step(sched, BETAS, EPS, grads[:len(params)],
+                                               state.opt_state)
+                torch._foreach_add_(params, updates)
+                se3_refine, opt_state_pose = state.se3_refine, state.opt_state_pose
+                if cfg.refine_pose:
+                    up_pose, opt_state_pose = adam_step(sched_pose, BETAS, EPS, grads[-1:],
+                                                        state.opt_state_pose)
+                    se3_refine = state.se3_refine + up_pose[0]
+            new_state = state._replace(se3_refine=se3_refine, opt_state=opt_state,
+                                       opt_state_pose=opt_state_pose, step=state.step + 1)
+            return new_state, {"loss": loss.detach(), "psnr": psnr.detach()}
 
     return step
 

@@ -69,12 +69,23 @@ SPANS: Dict[str, str] = {
     "nerfpp.bg_mlp": "the background MLP (BgMLPNet) on every background sample",
     "nerfpp.bg_composite": "background alpha, transmittance and maps, the foreground's "
                            "leftover transmittance bg_lambda, its > 0.1 gate, the fg/bg sum",
+    "nerf.step": "one MLP-family (NeRF, BARF, GARF) train step (nerf_trainer.make_train_step)",
+    "nerf.pose": "the step's poses and rays: compose_refined_pose (se3_to_SE3 of the "
+                 "corrections, the gate), the drawn pixels' gather, get_center_and_ray",
+    "nerf.field": "the samples' points and view directions, the MLP over them "
+                  "(render/mlp_renderer.py)",
+    "nerf.composite": "composite_nerf: quadrature weights, rgb, depth and opacity",
+    "nerf.backward": "autograd.grad of the loss",
+    "nerf.update": "both Adams (the MLP's, the pose corrections') and their adds",
 }
 
 COUNTERS: Dict[str, str] = {
     "ngp.march.slots": "sample slots the march hands the field (rays x samples per ray)",
     "ngp.march.valid": "valid samples among them (the compositor's n_samples, on the device)",
     "nerfpp.bg_samples": "NeRF++ background samples evaluated (rays x bg_samples per forward)",
+    "nerf.samples": "MLP-family field samples evaluated (rays x samples per forward)",
+    "nerf.pose_refined": "MLP-family pose compositions whose corrections apply (the gate "
+                         "open, on the device): one per train step",
     "launch.fused_mlp": "narrow fused-MLP forward kernel launches",
     "launch.fused_mlp_bwd": "narrow fused-MLP backward kernel launches",
     "launch.fused_mlp_wide": "wide fused-MLP forward kernel launches",
